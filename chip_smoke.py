@@ -8,7 +8,8 @@ result line):
 
 1. device: require CUDA; print the card's name and power limit, torch,
    CUDA and nvcc versions;
-2. build: compile every kernel of the path from csrc/ (timed as set-up);
+2. build: compile every kernel of the path from csrc/, one nvcc per source,
+   all started together (timed as set-up);
 3. main path: load scenes/dingdong.yml and render it at 1280x720 from the
    reference pose through ``render_image_kernel``, with every launch count
    set to 0 just before and read just after; check the frame;
@@ -20,7 +21,23 @@ result line):
    pose, at most 1e-3 of the pixels differing by more than 2/255 per frame;
 6. timing: CUDA events over 32 frames of dingdong 1280x720 at yaws
    90 + 1e-3 k after warm-up (kernel alone, whole call, plain version), and
-   the kernel alone per scene.
+   the kernel alone per scene;
+7a. the main path with a gradient: dingdong 1280x720 through
+   ``render_image_kernel`` with every differentiable scene and camera
+   tensor requiring grad, then ``loss.backward()``, the counts set to 0
+   just before and read just after: one render_fwd and one render_bwd
+   launch, every gradient finite and nonzero (reflection excepted: no
+   dingdong object reflects, so the chain is not traced);
+7b. the backward kernel against ``render_bwd_plain`` on the same aux (the
+   kernel forward's), dingdong, reflection_test and 20spheres at full size,
+   each parameter group within tests/test_pallas.py's rule;
+7c. determinism: a second backward gives the same bits;
+7d. three ``torch.optim.Adam`` steps (lr 1e-2) on dingdong 1280x720 fitting
+   the object colours and bg_color, started 10% low, to the frame rendered
+   at the true values: the loss falls at every step;
+7e. timing by CUDA events over 32 frames of the yaw sweep:
+   ``render_fwd(save_aux=True)``, ``render_bwd`` alone, the whole fwd+bwd
+   call, and ``render_bwd_plain`` once.
 
 The last lines are the card's name and power limit, a {"kernels": [...]}
 line, and {"ok": true, "device": {...}}.
@@ -28,11 +45,13 @@ line, and {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SCENES = ("dingdong", "monkey_saddle", "20spheres", "reflection_test",
@@ -41,6 +60,9 @@ MAX_BAD_VS_PLAIN = 1e-3   # per frame, kernel vs its plain version
 OFF_POSE = ((0.0, 2.0, -3.0), 75.0, -12.0)
 TIMED_FRAMES = 32
 PLAIN_FRAMES = 3
+KERNELS = ("render_fwd", "render_bwd")
+DIFF_FIELDS = ("coefs", "colors", "reflection", "light_p", "light_color", "bg_color",
+               "tan_half_fov")
 
 
 def log(msg: str) -> None:
@@ -87,8 +109,10 @@ def main() -> int:
     import numpy as np
 
     import tpu_ray_tracer_torch as ttt
-    from tpu_ray_tracer_torch.parity import PARITY_GATES, bad_pixel_fraction
+    from tpu_ray_tracer_torch.parity import (PARITY_GATES, bad_pixel_fraction,
+                                             gradient_group_errors)
     from tpu_ray_tracer_torch.render import _build
+    from tpu_ray_tracer_torch.render.bwd_kernel import render_bwd, render_bwd_plain
     from tpu_ray_tracer_torch.render.fwd_kernel import render_fwd, render_fwd_plain
     from tpu_ray_tracer_torch.render.kernel_backend import pack_frame
 
@@ -103,13 +127,16 @@ def main() -> int:
 
     # --- 2. build ---
     t0 = time.perf_counter()
-    lib_path = _build.build("render_fwd")
-    _build.load("render_fwd")
-    log(f"[build] render_fwd: {time.perf_counter() - t0:.1f} s -> {lib_path} "
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        lib_paths = dict(zip(KERNELS, pool.map(_build.build, KERNELS)))
+    for name, lib_path in lib_paths.items():
+        _build.load(name)
+        log(f"[build] {name} -> {lib_path}")
+        for line in (lib_path.parent / "ptxas.txt").read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build]   {line.strip()}")
+    log(f"[build] {len(KERNELS)} kernels in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
-    for line in (lib_path.parent / "ptxas.txt").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build]   {line.strip()}")
 
     def load(name):
         return ttt.load_from_file(os.path.join(REPO, "scenes", name + ".yml"))
@@ -193,6 +220,125 @@ def main() -> int:
         ms = timed_ms(lambda k: render_fwd(*tables, **kw), TIMED_FRAMES)
         log(f"[time] kernel {name} {scene.width}x{scene.height}: {ms:.4f} ms/frame "
             f"{scene.width * scene.height / ms / 1e3:.2f} Mrays/s ({smi})")
+    # --- 7a. the main path with a gradient ---
+    def grad_leaves(scene, cam):
+        """The scene and camera with every differentiable tensor a leaf."""
+        leaves = {f: getattr(scene, f).detach().clone().requires_grad_() for f in DIFF_FIELDS}
+        cam_leaves = {f: getattr(cam, f).detach().clone().requires_grad_()
+                      for f in ("position", "yaw_deg", "pitch_deg")}
+        return (dataclasses.replace(scene, **leaves), ttt.Camera(**cam_leaves),
+                {**leaves, **cam_leaves})
+
+    w = torch.linspace(0.1, 1.0, ding.height * ding.width * 3, device=dev).reshape(
+        ding.height, ding.width, 3)
+    g_scene, g_cam, leaves = grad_leaves(ding, camera(pitch=5.0))
+    render_fwd.launches = render_bwd.launches = 0
+    (w * ttt.render_image_kernel(g_scene, g_cam)).sum().backward()
+    torch.cuda.synchronize()
+    grad_launches = {"render_fwd": render_fwd.launches, "render_bwd": render_bwd.launches}
+    log(f"[grad] dingdong 1280x720 loss.backward(): launches {grad_launches}")
+    if grad_launches != {"render_fwd": 1, "render_bwd": 1}:
+        raise RuntimeError(f"grad path: expected one launch of each kernel, got {grad_launches}")
+    for name, leaf in leaves.items():
+        gmax = float(leaf.grad.abs().max())
+        log(f"[grad]   {name}: max|grad| {gmax:.6g}")
+        if not torch.isfinite(leaf.grad).all():
+            raise RuntimeError(f"grad path: non-finite gradient for {name}")
+        if gmax == 0.0 and name != "reflection":
+            raise RuntimeError(f"grad path: zero gradient for {name}")
+
+    # --- 7b. kernel against plain backward on the same (kernel) aux ---
+    def bwd_case(scene, cam):
+        tables, kw = pack_frame(scene, cam, 0, scene.height)
+        _, *aux = render_fwd(*tables, **kw, save_aux=True)
+        grad = torch.linspace(0.1, 1.0, scene.height * scene.width * 3, device=dev).reshape(
+            scene.height, scene.width, 3)
+        args = (tables[0], tables[2], tables[3], tables[4], tables[7], grad, *aux)
+        bkw = dict(width=kw["width"], height=kw["height"], rows=kw["rows"],
+                   n_lights=tables[4].shape[0], bounces=kw["bounces"])
+        return args, bkw
+
+    bwd_worst_abs = bwd_worst_rel = 0.0
+    for name in ("dingdong", "reflection_test", "20spheres"):
+        scene = scenes[name]
+        args, bkw = bwd_case(scene, camera(pitch=5.0))
+        k_vec = render_bwd(*args, **bkw)
+        p_vec = render_bwd_plain(*args, **bkw)
+        if not torch.isfinite(k_vec).all():
+            raise RuntimeError(f"bwd vs plain {name}: non-finite kernel gradient")
+        bwd_worst_abs = max(bwd_worst_abs, float((k_vec - p_vec).abs().max()))
+        report = []
+        errors = gradient_group_errors(k_vec, p_vec, args[0].shape[0], bkw["n_lights"])
+        for group, (rel, tol) in errors.items():
+            report.append(f"{group} {rel:.2e}")
+            bwd_worst_rel = max(bwd_worst_rel, rel)
+            if rel >= tol:
+                raise RuntimeError(f"bwd vs plain {name} {group}: relerr {rel} >= {tol}")
+        log(f"[bwd-vs-plain] {name} {scene.width}x{scene.height} bounces={bkw['bounces']}: "
+            + ", ".join(report))
+
+        # --- 7c. determinism ---
+        if not torch.equal(render_bwd(*args, **bkw), k_vec):
+            raise RuntimeError(f"bwd {name}: a second call gave other bits")
+    grads_first = {n: leaf.grad.clone() for n, leaf in leaves.items()}
+    for leaf in leaves.values():
+        leaf.grad = None
+    (w * ttt.render_image_kernel(g_scene, g_cam)).sum().backward()
+    if any(not torch.equal(leaf.grad, grads_first[n]) for n, leaf in leaves.items()):
+        raise RuntimeError("grad path: a second backward gave other bits")
+    log("[determinism] render_bwd on 3 scenes and the whole backward: bitwise equal on rerun")
+
+    # --- 7d. three fitting steps ---
+    target = ttt.render_image_kernel(ding)
+    colors = (ding.colors * 0.9).requires_grad_()
+    bg = (ding.bg_color * 0.9).requires_grad_()
+    fit_scene = dataclasses.replace(ding, colors=colors, bg_color=bg)
+    opt = torch.optim.Adam([colors, bg], lr=1e-2)
+    losses = []
+    for _ in range(3):
+        opt.zero_grad()
+        loss = ((ttt.render_image_kernel(fit_scene) - target) ** 2).mean()
+        loss.backward()
+        opt.step()
+        losses.append(loss.item())
+    with torch.no_grad():
+        losses.append(float(((ttt.render_image_kernel(fit_scene) - target) ** 2).mean()))
+    log(f"[fit] Adam lr 1e-2 on colors + bg_color, dingdong 1280x720: losses {losses}")
+    if not all(b < a for a, b in zip(losses, losses[1:])):
+        raise RuntimeError(f"fit: the loss did not fall at every step: {losses}")
+
+    # --- 7e. timing of the differentiable path ---
+    aux_frames = [render_fwd(*t, **kw, save_aux=True)[1:] for t, kw in frames]
+    grad_img = w.contiguous()
+
+    def bwd_args(k):
+        tables, kw = frames[k]
+        return ((tables[0], tables[2], tables[3], tables[4], tables[7], grad_img,
+                 *aux_frames[k]),
+                dict(width=kw["width"], height=kw["height"], rows=kw["rows"],
+                     n_lights=tables[4].shape[0], bounces=kw["bounces"]))
+
+    # a fitting loop's frame: leaves made once, gradients accumulating
+    t_scene, _, _ = grad_leaves(ding, cams[0])
+    t_cams = [grad_leaves(ding, c)[1] for c in cams]
+
+    def fwd_bwd(k):
+        (w * ttt.render_image_kernel(t_scene, t_cams[k])).sum().backward()
+
+    render_bwd(*bwd_args(0)[0], **bwd_args(0)[1])  # warm-up
+    render_bwd_plain(*bwd_args(0)[0], **bwd_args(0)[1])
+    fwd_bwd(0)
+    aux_ms = timed_ms(lambda k: render_fwd(*frames[k][0], **frames[k][1], save_aux=True),
+                      TIMED_FRAMES)
+    bwd_ms = timed_ms(lambda k: render_bwd(*bwd_args(k)[0], **bwd_args(k)[1]), TIMED_FRAMES)
+    fwd_bwd_ms = timed_ms(fwd_bwd, TIMED_FRAMES)
+    bwd_plain_ms = timed_ms(lambda k: render_bwd_plain(*bwd_args(k)[0], **bwd_args(k)[1]), 1)
+    for what, ms in (("render_fwd(save_aux=True) kernel", aux_ms),
+                     ("render_bwd kernel", bwd_ms),
+                     ("fwd+bwd call (render_image_kernel + backward)", fwd_bwd_ms),
+                     ("render_bwd_plain", bwd_plain_ms)):
+        log(f"[time] dingdong 1280x720 {what}: {ms:.4f} ms/frame "
+            f"{n_px / ms / 1e3:.2f} Mrays/s ({smi})")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     print(smi)
@@ -201,11 +347,24 @@ def main() -> int:
         "route": "cuda",
         "source": "tpu_ray_tracer_torch/csrc/render_fwd.cu",
         "replaces": "tpu_ray_tracer/render/pallas_backend.py:978",
-        "launches": main_launches,
+        "launches": grad_launches["render_fwd"],
+        "launches_forward_path": main_launches,
         "max_abs_err": worst_abs,
         "worst_bad_px_vs_plain": worst_frac,
         "ms": kernel_ms,
+        "ms_save_aux": aux_ms,
         "plain_ms": plain_ms,
+    }, {
+        "name": "render_bwd",
+        "route": "cuda",
+        "source": "tpu_ray_tracer_torch/csrc/render_bwd.cu",
+        "replaces": "tpu_ray_tracer/render/pallas_backend.py:1613",
+        "launches": grad_launches["render_bwd"],
+        "max_abs_err": bwd_worst_abs,
+        "worst_group_relerr_vs_plain": bwd_worst_rel,
+        "ms": bwd_ms,
+        "plain_ms": bwd_plain_ms,
+        "fwd_bwd_call_ms": fwd_bwd_ms,
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,5 @@
-"""The CUDA forward kernel against its plain PyTorch version, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card: the
+forward (with and without its per-stage aux) and the backward.
 
 This file imports nothing of JAX, so it runs on a machine with a GPU and
 without JAX, from the repository root:
@@ -19,8 +20,10 @@ import tpu_ray_tracer_torch as ttt
 from tpu_ray_tracer_torch.models import light as tlight
 from tpu_ray_tracer_torch.models import surface as tsurface
 from tpu_ray_tracer_torch.models.scene import Object
-from tpu_ray_tracer_torch.parity import bad_pixel_fraction
-from tpu_ray_tracer_torch.render.fwd_kernel import render_fwd, render_fwd_plain
+from tpu_ray_tracer_torch.parity import bad_pixel_fraction, gradient_group_errors
+from tpu_ray_tracer_torch.render.bwd_kernel import acc_layout, render_bwd, render_bwd_plain
+from tpu_ray_tracer_torch.render.fwd_kernel import (_eval_F_and_grad, _powers3, render_fwd,
+                                                    render_fwd_plain)
 from tpu_ray_tracer_torch.render.kernel_backend import pack_frame, render_rows_kernel
 
 pytestmark = pytest.mark.gpu
@@ -108,3 +111,192 @@ def test_many_lights_and_large_tables(cuda):
     assert sum(t.numel() * t.element_size() for t in tables) > 48 * 1024
     out, plain = _kernel_and_plain(tables, kw)
     assert bad_pixel_fraction(out, plain) <= 0.01
+
+
+# --- the forward's aux (K1b) and the backward (K2) ---
+
+MAX_SLOT_MISMATCH = 1e-3  # knife-edge root choices, as MAX_BAD_VS_PLAIN
+
+
+def _lambert(tables, aux_t, aux_slot, width, height, rows):
+    """[S, rows, W, L] Lambert factor n.ld of each light at each stage's hit
+    point, the chain rebuilt from the aux as the backward's Phase A does."""
+    coefs, lights, cam = tables[0], tables[4], tables[7]
+    n_obj = coefs.shape[0]
+    coefs_pad = torch.cat([coefs, coefs.new_zeros(1, coefs.shape[1])])
+    pix = torch.arange(rows * width, device=coefs.device)
+    ndc_x = ((pix % width).float() + 0.5) / width
+    ndc_y = ((pix // width).float() + cam[17] + 0.5) / height
+    cx, cy = (2 * ndc_x - 1) * cam[12], (2 * ndc_y - 1) * cam[13]
+    target = torch.stack([cx * cam[k] + cy * cam[3 + k] + cam[6 + k] for k in range(3)], -1)
+    d = target / target.norm(dim=-1, keepdim=True)
+    o = cam[9:12].expand_as(d)
+    out = []
+    for t, slot in zip(aux_t.reshape(len(aux_t), -1), aux_slot.reshape(len(aux_slot), -1)):
+        p = o + t[:, None] * d
+        sel = coefs_pad[torch.where(slot >= 0, slot, n_obj).long()].unbind(1)
+        _, _, g = _eval_F_and_grad(sel, _powers3(*p.unbind(1)), need_mag=False)
+        n = torch.stack(g, -1)
+        n = n / n.norm(dim=-1, keepdim=True).clamp_min(1e-30)
+        to = lights[None, :, 1:4] - p[:, None, :]
+        ld = torch.where(lights[None, :, :1] > 0.5, to / to.norm(dim=-1, keepdim=True),
+                         lights[None, :, 1:4])
+        out.append((n[:, None, :] * ld).sum(-1))
+        o = p + 1e-2 * n
+        d = d - 2 * (d * n).sum(-1, keepdim=True) * n
+    return torch.stack(out).reshape(len(aux_t), rows, width, -1)
+
+
+@pytest.mark.parametrize("name", SCENES)
+def test_aux_matches_plain(cuda, name):
+    """K1b: the kernel's (t, slot, occlusion bits) per chain stage against
+    the plain version's, and the image bitwise the same with and without
+    aux. Bits are compared where the light faces the point: the kernel does
+    not test a light whose Lambert factor is 0 (render_fwd docstring)."""
+    scene = _scene(name, cuda)
+    for pose in POSES:
+        tables, kw = pack_frame(scene, _camera(pose, cuda), 0, scene.height)
+        image = render_fwd(*tables, **kw)
+        k_img, *k_aux = render_fwd(*tables, **kw, save_aux=True)
+        _, *p_aux = render_fwd_plain(*tables, **kw, save_aux=True)
+        assert torch.equal(k_img, image), (name, pose)
+        (kt, ks, ko), (pt, ps, po) = k_aux, p_aux
+        assert ks.shape == (kw["bounces"] + 1, scene.height, scene.width)
+        same = (ks == ps).all(0)  # the pixel's whole chain agrees
+        assert 1.0 - same.float().mean().item() <= MAX_SLOT_MISMATCH, (name, pose)
+        hit = same & (ks >= 0)
+        # f32 roots of the same polynomial, FMA-contracted on the card
+        assert ((kt - pt).abs() <= 1e-4 * pt.abs())[hit].all(), (name, pose)
+        # lam above 1e-5: this rebuilt factor and the kernel's may round to
+        # opposite sides of 0; bits flip where the two forwards' occlusion
+        # roots do, at most as often as slots
+        lam = _lambert(tables, pt, ps, scene.width, scene.height, scene.height)
+        bit = torch.arange(lam.shape[-1], device=cuda)
+        faces = (same & (ks >= 0))[..., None] & (lam > 1e-5)
+        k_bits, p_bits = ((ko[..., None] >> bit) & 1)[faces], ((po[..., None] >> bit) & 1)[faces]
+        assert (k_bits != p_bits).float().mean().item() <= MAX_SLOT_MISMATCH, (name, pose)
+
+
+def _bwd_case(scene, cam, **pack_kw):
+    """The kernel forward's aux and a non-uniform cotangent for one frame."""
+    tables, kw = pack_frame(scene, cam, 0, scene.height, **pack_kw)
+    _, *aux = render_fwd(*tables, **kw, save_aux=True)
+    n = scene.height * scene.width * 3
+    grad = torch.linspace(0.1, 1.0, n, device=tables[0].device).reshape(scene.height,
+                                                                        scene.width, 3)
+    args = (tables[0], tables[2], tables[3], tables[4], tables[7], grad, *aux)
+    bkw = dict(width=kw["width"], height=kw["height"], rows=kw["rows"],
+               n_lights=tables[4].shape[0], bounces=kw["bounces"])
+    return args, bkw
+
+
+def _assert_bwd_close(k_vec, p_vec, n_obj, n_lights, label):
+    """Each parameter group within tests/test_pallas.py:177-181's rule
+    (parity.gradient_group_errors)."""
+    assert torch.isfinite(k_vec).all(), label
+    for group, (err, tol) in gradient_group_errors(k_vec, p_vec, n_obj, n_lights).items():
+        assert err < tol, (label, group, err)
+
+
+def _kernel_vs_plain_bwd(args, bkw, label):
+    before = render_bwd.launches
+    k_vec = render_bwd(*args, **bkw)
+    torch.cuda.synchronize()
+    assert render_bwd.launches == before + 1
+    p_vec = render_bwd_plain(*args, **bkw)
+    _assert_bwd_close(k_vec, p_vec, args[0].shape[0], bkw["n_lights"], label)
+    return k_vec
+
+
+@pytest.mark.parametrize("name", SCENES)
+def test_bwd_kernel_matches_plain(cuda, name):
+    """K2 against render_bwd_plain on the same (kernel) aux, so knife-edge
+    root choices of the two forwards do not enter; reflection_test runs its
+    own max_reflections chain."""
+    scene = _scene(name, cuda)
+    for pose in POSES:
+        args, bkw = _bwd_case(scene, _camera(pose, cuda))
+        _kernel_vs_plain_bwd(args, bkw, (name, pose))
+
+
+def _many_lights_scene(n_lights, width=24, height=8):
+    """tests/test_degenerate.py's fan of directional lights over a sphere
+    and a plane."""
+    objects = [Object(tsurface.sphere((0.0, 0.0, 6.0), 2.0), 0.0, np.float32([0.8, 0.3, 0.2])),
+               Object(tsurface.plane((0.0, -3.0, 0.0), (0.0, 1.0, 0.0)), 0.0,
+                      np.float32([0.2, 0.6, 0.9]))]
+    lights = []
+    for i in range(n_lights):
+        ang = 2.0 * np.pi * i / n_lights
+        lights.append(tlight.directional(
+            0.08, (np.cos(ang) * 0.5, -1.0, np.sin(ang) * 0.5 + 0.3),
+            (1.0, 1.0 - 0.5 * (i % 3) / 2.0, 0.5 + 0.5 * (i % 2))))
+    return ttt.build_scene(width, height, 60.0, objects, lights, bg_color=(0.1, 0.1, 0.1))
+
+
+@pytest.mark.parametrize("case", ["31_lights", "deep_chain", "global_rows"])
+def test_bwd_kernel_edges(cuda, case):
+    """31 lights (the last the i32 mask holds); a chain deeper than the
+    kernel's per-thread stage array (rebuilt stages); more accumulator rows
+    than shared memory holds (the warp copies in global scratch)."""
+    if case == "31_lights":
+        scene = _many_lights_scene(31, 48, 32).to(cuda)
+        args, bkw = _bwd_case(scene, _camera(POSES[0], cuda), polish_iters=2)
+    elif case == "deep_chain":
+        # a floor and a ceiling that both reflect: rays bounce to the cap
+        objects = [Object(tsurface.plane((0.0, -2.0, 0.0), (0.0, 1.0, 0.0)), 0.7,
+                          np.float32([0.9, 0.8, 0.7])),
+                   Object(tsurface.plane((0.0, 2.0, 0.0), (0.0, -1.0, 0.0)), 0.6,
+                          np.float32([0.6, 0.7, 0.9])),
+                   Object(tsurface.sphere((0.5, 0.0, 9.0), 1.0), 0.3, np.float32([0.9, 0.2, 0.2]))]
+        lights = [tlight.directional(1.0, (0.3, -1.0, 0.4), (1, 1, 1)),
+                  tlight.spherical(200.0, (0.0, 1.5, 6.0), (1, 1, 1))]
+        scene = ttt.build_scene(48, 36, 60.0, objects, lights, max_reflections=11).to(cuda)
+        args, bkw = _bwd_case(scene, _camera(((0.0, 0.0, 0.0), 90.0, -10.0), cuda))
+        assert bkw["bounces"] == 11
+        assert (args[7][8:] >= 0).any()  # some pixel reaches a rebuilt stage
+    else:
+        rng = np.random.default_rng(11)
+        objects = [Object(tsurface.sphere(rng.uniform(-6, 6, 3) + [0, 0, 20], 0.4), 0.0,
+                          rng.uniform(0, 1, 3).astype(np.float32)) for _ in range(600)]
+        lights = [tlight.directional(1.0, (0.3, -1.0, 0.4), (1, 1, 1)),
+                  tlight.spherical(400.0, (0.0, 8.0, 10.0), (1, 1, 1))]
+        scene = ttt.build_scene(32, 24, 60.0, objects, lights).to(cuda)
+        args, bkw = _bwd_case(scene, _camera(POSES[0], cuda))
+        assert acc_layout(600, 2)[-1] * 4 * 4 > 200 * 1024  # 4 warp copies
+    _kernel_vs_plain_bwd(args, bkw, case)
+
+
+def test_bwd_deterministic_and_large(cuda):
+    """Two backward calls give the same bits; 20spheres (631 accumulator
+    rows, 19 lights) at 320x240 matches the plain version."""
+    scene = _scene("20spheres", cuda, 320, 240)
+    args, bkw = _bwd_case(scene, _camera(POSES[0], cuda))
+    assert acc_layout(20, 19)[-1] == 631
+    first = _kernel_vs_plain_bwd(args, bkw, "20spheres 320x240")
+    assert torch.equal(render_bwd(*args, **bkw), first)
+    refl = _scene("reflection_test", cuda)
+    args, bkw = _bwd_case(refl, _camera(POSES[1], cuda))
+    assert torch.equal(render_bwd(*args, **bkw), render_bwd(*args, **bkw))
+
+
+def test_backward_launches_once_each(cuda):
+    """One .backward() through render_image_kernel: exactly one render_fwd
+    launch (with aux) and one render_bwd launch; gradients reach every
+    differentiable table."""
+    scene = _scene("dingdong", cuda)
+    fields = ("coefs", "colors", "reflection", "light_p", "light_color", "bg_color",
+              "tan_half_fov")
+    leaves = {f: getattr(scene, f).clone().requires_grad_() for f in fields}
+    scene = dataclasses.replace(scene, **leaves)
+    cam = _camera(POSES[1], cuda)
+    cam_leaves = [t.requires_grad_() for t in (cam.position, cam.yaw_deg, cam.pitch_deg)]
+    f0, b0 = render_fwd.launches, render_bwd.launches
+    image = ttt.render_image_kernel(scene, cam)
+    (image * torch.linspace(0.1, 1.0, image.numel(), device=cuda).reshape(image.shape)).sum() \
+        .backward()
+    torch.cuda.synchronize()
+    assert (render_fwd.launches - f0, render_bwd.launches - b0) == (1, 1)
+    for name, leaf in [*leaves.items(), *zip(("position", "yaw", "pitch"), cam_leaves)]:
+        assert leaf.grad is not None and torch.isfinite(leaf.grad).all(), name
+    assert float(leaves["coefs"].grad.abs().max()) > 0

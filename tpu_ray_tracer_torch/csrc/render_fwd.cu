@@ -2,7 +2,7 @@
 //
 // Replaces the forward Pallas TPU kernel of
 // tpu_ray_tracer/render/pallas_backend.py (`_make_kernel`, inner `kernel`,
-// launched by `_dispatch_fwd`) for save_aux=False: ray generation, the
+// launched by `_dispatch_fwd`), with and without save_aux: ray generation, the
 // nearest hit over all objects (cubic slots: Cardano/trig seeds plus two
 // dominant-balance seeds, a 1-D Newton screen with a residual test and the
 // winner polished against the direct 20-monomial F; quadric slots: stable
@@ -10,6 +10,16 @@
 // shadow-ray occlusion, and the reflection chain with the at-cap background
 // blend. The arithmetic follows the Pallas kernel operation for operation;
 // render/fwd_kernel.py holds the plain PyTorch version of the same math.
+//
+// save_aux (three non-null aux pointers, [bounces + 1, rows, width] each)
+// also stores, per chain stage, what the backward kernel (render_bwd.cu)
+// replays the stage from without a root solve: the hit distance (0 on a
+// miss), the permuted hit slot (-1) and the i32 occlusion bitmask (Pallas
+// :1025-1029, :1084-1088). A bounce stage keeps t and slot only where the
+// lane advanced into it and the bits only where it entered. Stages past the
+// thread's early exit from the bounce loop keep 0 / -1 / 0, written before
+// the chain starts. The image arithmetic is the same with and without aux:
+// the aux stores sit behind a runtime pointer test.
 //
 // What bounds it on this card: per-thread ALU work and register pressure
 // from the unrolled 20-monomial polynomials (ray expansion, Newton steps,
@@ -30,53 +40,24 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "poly.cuh"
+
 namespace {
 
-constexpr float EPS = 1e-7f;
 constexpr float MAX_T = 1e6f;
-constexpr float SHADOW_BIAS = 1e-2f;
 constexpr float RESIDUAL_TOL = 1e-5f;
 constexpr float FAKE_ROOT = 2e6f;
 constexpr float BIG_ROOT = 2.0f * FAKE_ROOT;
-constexpr double PI_D = 3.14159265358979323846;
 constexpr double TWO_THIRD_PI_D = PI_D * 2.0 / 3.0;
 constexpr float TTP1 = (float)TWO_THIRD_PI_D;
 constexpr float TTP2 = (float)(2.0 * TWO_THIRD_PI_D);
 constexpr float PI_F = (float)PI_D;
-constexpr float INV_PI = (float)(1.0 / PI_D);
-constexpr float FOUR_PI = (float)(4.0 * PI_D);
 constexpr float ONE_THIRD = (float)(1.0 / 3.0);
-constexpr int N_COEFS = 20;
-constexpr int QUAD_START = 10;  // first degree-<=2 monomial (x2)
-constexpr int BLOCK_X = 8;      // the reference's 8x8 pixel blocks
+constexpr int BLOCK_X = 8;  // the reference's 8x8 pixel blocks
 constexpr int BLOCK_Y = 8;
 
-// Monomial exponents (px, py, pz) as hex digits 0xXYZ, in the reference order
-// x3 y3 z3 x2y xy2 x2z xz2 y2z yz2 xyz x2 y2 z2 xy xz yz x y z c
-// (models/surface.py MONOMIAL_POWERS).
-__host__ __device__ constexpr int mono_code(int m) {
-  return m == 0 ? 0x300 : m == 1 ? 0x030 : m == 2 ? 0x003 : m == 3 ? 0x210
-       : m == 4 ? 0x120 : m == 5 ? 0x201 : m == 6 ? 0x102 : m == 7 ? 0x021
-       : m == 8 ? 0x012 : m == 9 ? 0x111 : m == 10 ? 0x200 : m == 11 ? 0x020
-       : m == 12 ? 0x002 : m == 13 ? 0x110 : m == 14 ? 0x101 : m == 15 ? 0x011
-       : m == 16 ? 0x100 : m == 17 ? 0x010 : m == 18 ? 0x001 : 0x000;
-}
-__host__ __device__ constexpr int mpow(int m, int axis) {
-  return (mono_code(m) >> (4 * (2 - axis))) & 0xF;
-}
 __host__ __device__ constexpr int binom3(int n, int k) {  // n <= 3
   return (k == 0 || k == n) ? 1 : (n == 3 ? 3 : 2);
-}
-static_assert(mpow(3, 0) == 2 && mpow(3, 1) == 1 && mpow(3, 2) == 0, "x2y");
-static_assert(mpow(9, 0) == 1 && mpow(9, 1) == 1 && mpow(9, 2) == 1, "xyz");
-static_assert(mpow(15, 1) == 1 && mpow(15, 2) == 1 && mpow(19, 0) == 0, "yz, c");
-
-// NaN-propagating max/min, as jnp.maximum / torch.maximum (fmaxf drops NaN).
-__device__ __forceinline__ float jmax(float a, float b) {
-  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
-}
-__device__ __forceinline__ float jmin(float a, float b) {
-  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fminf(a, b);
 }
 
 // sign(x) * |x|^(1/3), the Pallas kernel's seed-level cube root (:97).
@@ -91,51 +72,6 @@ __device__ __forceinline__ float acos_seed(float x) {
   const float p = 1.5707288f + ax * (-0.2121144f + ax * (0.0742610f + ax * (-0.0187293f)));
   const float pos = sqrtf(jmax(1.f - ax, 0.f)) * p;
   return x < 0.f ? PI_F - pos : pos;
-}
-
-// P[a][e] = component a to the power e; P[a][0] = 1, so a product over all
-// three axes equals the Pallas `_prod` over the nonzero exponents exactly.
-struct Pow3 {
-  float v[3][4];
-};
-
-__device__ __forceinline__ Pow3 powers(float x, float y, float z) {
-  Pow3 P;
-  const float c[3] = {x, y, z};
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    P.v[a][0] = 1.f;
-    P.v[a][1] = c[a];
-    P.v[a][2] = c[a] * c[a];
-    P.v[a][3] = P.v[a][2] * c[a];
-  }
-  return P;
-}
-
-__device__ __forceinline__ float mono(const Pow3& P, int ex, int ey, int ez) {
-  return P.v[0][ex] * P.v[1][ey] * P.v[2][ez];
-}
-
-// F, sum |terms| and dF at the point powers P, over monomials [M_START, 20)
-// (Pallas `_eval_F_and_grad`, :168).
-template <int M_START, bool NEED_MAG, bool NEED_GRAD>
-__device__ __forceinline__ void eval_F(const float* c, const Pow3& P, float& f,
-                                       float& mag, float g[3]) {
-  f = 0.f;
-  mag = 0.f;
-  g[0] = g[1] = g[2] = 0.f;
-#pragma unroll
-  for (int m = M_START; m < N_COEFS; ++m) {
-    const int ex = mpow(m, 0), ey = mpow(m, 1), ez = mpow(m, 2);
-    const float term = c[m] * mono(P, ex, ey, ez);
-    f += term;
-    if (NEED_MAG) mag += fabsf(term);
-    if (NEED_GRAD) {
-      if (ex > 0) g[0] += (c[m] * (float)ex) * mono(P, ex - 1, ey, ez);
-      if (ey > 0) g[1] += (c[m] * (float)ey) * mono(P, ex, ey - 1, ez);
-      if (ez > 0) g[2] += (c[m] * (float)ez) * mono(P, ex, ey, ez - 1);
-    }
-  }
 }
 
 // [Hxx, Hyy, Hzz, Hxy, Hxz, Hyz] of F at P (Pallas `_hessian_entries`, :208).
@@ -394,6 +330,7 @@ struct Tables {
 struct Hit {
   bool hit;
   int idx;
+  float t;  // the hit distance, 0 on a miss
   float px, py, pz, nx, ny, nz;
 };
 
@@ -419,6 +356,7 @@ __device__ Hit trace(const Tables& T, float ox, float oy, float oz, float dx,
   h.hit = best_idx >= 0;
   h.idx = best_idx;
   const float t = h.hit ? best_t : 0.f;
+  h.t = t;
   h.px = ox + t * dx;
   h.py = oy + t * dy;
   h.pz = oz + t * dz;
@@ -468,12 +406,18 @@ __device__ __forceinline__ LightDir light_dir(const float* L, const Hit& h) {
 // Shadow-tested Lambertian sum over lights, clamped to 1 (Pallas `shade`,
 // :596-941). Lights go in chunks of 32 (one bitmask word); within a chunk
 // the loop runs objects outer and lights inner, so each object's F, grad F
-// and Hessian at the shadow origin are computed once per chunk.
-__device__ void shade(const Tables& T, const Hit& h, float out[3]) {
+// and Hessian at the shadow origin are computed once per chunk. Returns the
+// occlusion bits of the first chunk (lights 0-31), the aux bitmask. A light
+// that does not face the point (lambert factor 0) is never tested, so its
+// bit stays 0 where the Pallas kernel may set it; nothing reads such a bit:
+// the backward multiplies it by ndotl <= 0 terms that are 0 (dndotl, the
+// colour and distance cotangents) whatever it holds.
+__device__ uint32_t shade(const Tables& T, const Hit& h, float out[3]) {
   const float* col = T.colors + 3 * h.idx;
   const Pow3 S = powers(h.px + SHADOW_BIAS * h.nx, h.py + SHADOW_BIAS * h.ny,
                         h.pz + SHADOW_BIAS * h.nz);
   float acc[3] = {0.f, 0.f, 0.f};
+  uint32_t bits0 = 0u;
   for (int l0 = 0; l0 < T.n_lights; l0 += 32) {
     const int nl = T.n_lights - l0 < 32 ? T.n_lights - l0 : 32;
     uint32_t pending = 0u, occluded = 0u;
@@ -534,10 +478,12 @@ __device__ void shade(const Tables& T, const Hit& h, float out[3]) {
       acc[1] = acc[1] + col[1] * L[5] * scale;
       acc[2] = acc[2] + col[2] * L[6] * scale;
     }
+    if (l0 == 0) bits0 = occluded;
   }
   out[0] = jmin(1.f, acc[0]);
   out[1] = jmin(1.f, acc[1]);
   out[2] = jmin(1.f, acc[2]);
+  return bits0;
 }
 
 __global__ void __launch_bounds__(BLOCK_X * BLOCK_Y)
@@ -545,7 +491,9 @@ render_fwd_kernel(const float* __restrict__ g_coefs, const int* __restrict__ g_o
                   const float* __restrict__ g_colors, const float* __restrict__ g_refl,
                   const float* __restrict__ g_lights, const float* __restrict__ g_dtab,
                   const int* __restrict__ g_posdef, const float* __restrict__ g_cam,
-                  float* __restrict__ out, int width, int height, int rows, int n_obj,
+                  float* __restrict__ out, float* __restrict__ aux_t,
+                  int* __restrict__ aux_slot, int* __restrict__ aux_occ, int width,
+                  int height, int rows, int n_obj,
                   int n_cubic, int n_lights, int polish_iters, int shadow_iters,
                   int screen_iters, int bounces) {
   // --- stage the scene tables (a few KB) into shared memory ---
@@ -593,9 +541,28 @@ render_fwd_kernel(const float* __restrict__ g_coefs, const int* __restrict__ g_o
   float dx = tx * inv_len, dy = ty * inv_len, dz = tz * inv_len;
   const float bg[3] = {s_cam[14], s_cam[15], s_cam[16]};
 
+  // aux of stage s for this pixel sits at s * stage + pix
+  const bool save_aux = aux_t != nullptr;
+  const size_t pix = (size_t)y_local * width + x;
+  const size_t stage = (size_t)rows * width;
+  if (save_aux) {
+    for (int s = 0; s <= bounces; ++s) {
+      aux_t[s * stage + pix] = 0.f;
+      aux_slot[s * stage + pix] = -1;
+      aux_occ[s * stage + pix] = 0;
+    }
+  }
+
   Hit h = trace(T, s_cam[9], s_cam[10], s_cam[11], dx, dy, dz);
   float result[3] = {bg[0], bg[1], bg[2]};
-  if (h.hit) shade(T, h, result);
+  if (h.hit) {
+    const uint32_t bits = shade(T, h, result);
+    if (save_aux) {
+      aux_t[pix] = h.t;
+      aux_slot[pix] = h.idx;
+      aux_occ[pix] = (int)bits;
+    }
+  }
 
   // --- reflection chain (Pallas kernel :1031-1130) ---
   if (h.hit && bounces > 0) {
@@ -615,7 +582,14 @@ render_fwd_kernel(const float* __restrict__ g_coefs, const int* __restrict__ g_o
       const Hit h2 = trace(T, h.px + SHADOW_BIAS * h.nx, h.py + SHADOW_BIAS * h.ny,
                            h.pz + SHADOW_BIAS * h.nz, rdx, rdy, rdz);
       float bcol[3] = {bg[0], bg[1], bg[2]};
-      if (h2.hit) shade(T, h2, bcol);
+      if (h2.hit) {
+        const uint32_t bits = shade(T, h2, bcol);
+        if (save_aux) {  // entered and hit: the lane advances into stage k + 1
+          aux_t[(k + 1) * stage + pix] = h2.t;
+          aux_slot[(k + 1) * stage + pix] = h2.idx;
+          aux_occ[(k + 1) * stage + pix] = (int)bits;
+        }
+      }
 #pragma unroll
       for (int c = 0; c < 3; ++c) result[c] = (1.f - ratio) * result[c] + ratio * bcol[c];
       dx = rdx;
@@ -646,7 +620,8 @@ render_fwd_kernel(const float* __restrict__ g_coefs, const int* __restrict__ g_o
 
 extern "C" int trt_render_fwd(const void* coefs, const void* orig_index, const void* colors,
                               const void* refl, const void* lights, const void* dir_table,
-                              const void* posdef, const void* cam, void* out, int width,
+                              const void* posdef, const void* cam, void* out, void* aux_t,
+                              void* aux_slot, void* aux_occ, int width,
                               int height, int rows, int n_obj, int n_cubic, int n_lights,
                               int polish_iters, int shadow_iters, int screen_iters,
                               int bounces, void* stream) {
@@ -665,7 +640,8 @@ extern "C" int trt_render_fwd(const void* coefs, const void* orig_index, const v
       static_cast<const float*>(colors), static_cast<const float*>(refl),
       static_cast<const float*>(lights), static_cast<const float*>(dir_table),
       static_cast<const int*>(posdef), static_cast<const float*>(cam),
-      static_cast<float*>(out), width, height, rows, n_obj, n_cubic, n_lights, polish_iters,
+      static_cast<float*>(out), static_cast<float*>(aux_t), static_cast<int*>(aux_slot),
+      static_cast<int*>(aux_occ), width, height, rows, n_obj, n_cubic, n_lights, polish_iters,
       shadow_iters, screen_iters, bounces);
   return (int)cudaGetLastError();
 }

@@ -31,10 +31,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # ctypes signatures of the C launchers, by library name
 _SIGNATURES = {
     "render_fwd": {
-        # 8 tables, out | width height rows n_obj n_cubic n_lights polish shadow
-        # screen bounces | stream
-        "trt_render_fwd": ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 10
+        # 8 tables, out, aux t/slot/occ (null without save_aux) | width height
+        # rows n_obj n_cubic n_lights polish shadow screen bounces | stream
+        "trt_render_fwd": ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 10
                            + [ctypes.c_void_p], ctypes.c_int),
+    },
+    "render_bwd": {
+        # coefs colors refl lights cam, cotangent, aux t/slot/occ, scratch, out
+        # | width height rows n_obj n_lights bounces | stream
+        "trt_render_bwd": ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
+                           + [ctypes.c_void_p], ctypes.c_int),
+        # width rows n_obj n_lights -> floats of scratch the launch needs
+        "trt_render_bwd_scratch": ([ctypes.c_int] * 4, ctypes.c_longlong),
     },
 }
 

@@ -4,10 +4,20 @@ render entries.
 Counterpart of the host-side code of
 ``tpu_ray_tracer/render/pallas_backend.py`` (``render_image_pallas`` :2259,
 ``render_rows_pallas`` :2158, ``_render_pallas_raw`` :1336,
-``_render_pallas_jit`` :1457). A frame is: the scene statics (cubics-first
-slot order, per-slot posdef, whether the chain runs), memoised per table;
-the packed tables (``_pack_lights``, ``_pack_camera``, ``_dir_form_table``)
-built with torch on the scene's device; one ``render_fwd`` launch.
+``_render_pallas_jit`` :1457, and the ``custom_vjp`` pair ``_packed_render``
+/ ``_packed_fwd`` / ``_packed_bwd`` :2032-2120). A frame is: the scene
+statics (cubics-first slot order, per-slot posdef, whether the chain runs),
+memoised per table; the packed tables (``_pack_lights``, ``_pack_camera``,
+``_dir_form_table``) built with torch on the scene's device; one
+``render_fwd`` launch.
+
+The render is differentiable. When grad mode is on and a scene or camera
+tensor requires grad, the frame goes through ``PackedRender``: the forward
+saves its per-stage aux (``render_fwd(..., save_aux=True)``) and the
+backward is one ``render_bwd`` call on it, whose gradient rows autograd
+carries back through the packing (the slot gather, the f32 casts and the
+camera frame) to the scene's and camera's own tensors, as ``jax.grad``
+carries them through ``jnp.take``, ``_pack_lights`` and ``_pack_camera``.
 
 The JAX package's scene statics are jit-static and its kernel is rebuilt
 per scene; here they are runtime arguments of one kernel build, and the
@@ -24,7 +34,8 @@ import torch
 from ..models.scene import Scene
 from ..models.surface import MONOMIAL_POWERS
 from ..ops import camera as camera_ops
-from .fwd_kernel import QUAD_START, render_fwd
+from .bwd_kernel import render_bwd, split_grad
+from .fwd_kernel import MAX_AUX_LIGHTS, QUAD_START, render_fwd
 
 # Numerics knobs of the Pallas kernel, fixed at their defaults there:
 # `_shadow_polish_default()` (:1235) and `_screen_iters_default()` (:1240).
@@ -111,7 +122,7 @@ def _slot_tables(coefs: torch.Tensor):
 
 def _reflective(refl: torch.Tensor) -> bool:
     """The entry test of ``static_bounce_count``: any ratio above EPS."""
-    return refl.numel() > 0 and float(refl.max()) > 1e-7
+    return refl.numel() > 0 and float(refl.detach().max()) > 1e-7
 
 
 def _light_kinds_of(light_is_spherical) -> tuple:
@@ -205,6 +216,56 @@ def pack_frame(scene: Scene, camera: camera_ops.Camera, row0: int, rows: int,
     return tables, kwargs
 
 
+class PackedRender(torch.autograd.Function):
+    """The differentiable render on packed tables: the forward launches
+    ``render_fwd`` with ``save_aux``, the backward one ``render_bwd`` on that
+    aux (the counterpart of ``_packed_render`` / ``_packed_fwd`` /
+    ``_packed_bwd``).
+
+    Inputs are the 8 tables of ``pack_frame`` and its keyword dict. The
+    gradient goes to coefs, colors, refl, lights and cam; ``orig_index``,
+    ``posdef`` and ``dir_table`` get none. ``dir_table`` feeds only the
+    occlusion tests, which the JAX VJP never differentiates, so a gradient
+    through it would be counted twice.
+    """
+
+    @staticmethod
+    def forward(ctx, coefs, orig_index, colors, refl, lights, dir_table, posdef, cam, kwargs):
+        image, *aux = render_fwd(coefs, orig_index, colors, refl, lights, dir_table, posdef,
+                                 cam, **kwargs, save_aux=True)
+        ctx.save_for_backward(coefs, colors, refl, lights, cam, *aux)
+        ctx.kwargs = kwargs
+        return image
+
+    @staticmethod
+    def backward(ctx, grad_image):
+        coefs, colors, refl, lights, cam, *aux = ctx.saved_tensors
+        kw = ctx.kwargs
+        n_obj, n_lights = coefs.shape[0], lights.shape[0]
+        vec = render_bwd(coefs, colors, refl, lights, cam,
+                         grad_image.to(torch.float32).contiguous(), *aux,
+                         width=kw["width"], height=kw["height"], rows=kw["rows"],
+                         n_lights=n_lights, bounces=kw["bounces"])
+        grads = split_grad(vec, n_obj, n_lights)
+        # cam row 17 is the integer row offset and light column 0 the kind
+        # flag: neither is a parameter (Pallas :2099-2109)
+        grads["cam"][17] = 0.0
+        grads["lights"][:, 0] = 0.0
+        return (grads["coefs"], None, grads["colors"], grads["refl"], grads["lights"], None,
+                None, grads["cam"], None)
+
+
+def _wants_grad(scene: Scene, camera: camera_ops.Camera) -> bool:
+    """Whether autograd would record the render: grad mode on and any
+    differentiable scene or camera tensor requiring grad."""
+    if not torch.is_grad_enabled():
+        return False
+    tensors = (scene.coefs, scene.colors, scene.reflection, scene.light_p,
+               scene.light_color, scene.bg_color, scene.tan_half_fov,
+               camera.position, camera.yaw_deg, camera.pitch_deg)
+    return any(t.requires_grad for t in tensors)
+
+
 def render_rows_kernel(scene: Scene, camera: camera_ops.Camera, row0: int, rows: int,
                        *, polish_iters: int = 3, bounces: int | None = None,
                        shadow_iters: int | None = None) -> torch.Tensor:
@@ -215,9 +276,25 @@ def render_rows_kernel(scene: Scene, camera: camera_ops.Camera, row0: int, rows:
     Unlike the JAX entry, the scene statics are always derived from the
     tables: a torch tensor is never abstract. ``bounces=None`` runs the
     reflection chain to ``max_reflections`` when any object reflects.
+
+    Differentiable when a scene or camera tensor requires grad (see
+    ``PackedRender``); the gradients of row blocks sum to the frame's. The
+    fused backward covers scenes with at least one object and at most 31
+    lights (the i32 occlusion mask); a gradient of any other scene raises
+    ``NotImplementedError``, while its forward renders as always.
     """
+    wants_grad = _wants_grad(scene, camera)
+    if wants_grad and not (scene.n_objects > 0 and scene.n_lights <= MAX_AUX_LIGHTS):
+        raise NotImplementedError(
+            f"render_rows_kernel: no gradient for a scene with {scene.n_objects} objects "
+            f"and {scene.n_lights} lights: the fused backward needs at least one object "
+            f"and at most {MAX_AUX_LIGHTS} lights; such gradients need the plain "
+            "pipeline (ROADMAP Queue 1 item 6, the JAX package's _diff_bwd fallback), "
+            "which is not ported yet")
     tables, kwargs = pack_frame(scene, camera, row0, rows, polish_iters=polish_iters,
                                 bounces=bounces, shadow_iters=shadow_iters)
+    if wants_grad:
+        return PackedRender.apply(*tables, kwargs)
     return render_fwd(*tables, **kwargs)
 
 
@@ -225,7 +302,8 @@ def render_image_kernel(scene: Scene, camera: camera_ops.Camera | None = None,
                         polish_iters: int = 3, bounces: int | None = None,
                         shadow_iters: int | None = None) -> torch.Tensor:
     """Render a full frame -> [H, W, 3] f32 on the scene's device, row 0 at
-    the bottom: the counterpart of ``render_image_pallas`` (forward only).
+    the bottom: the counterpart of ``render_image_pallas``, differentiable
+    as ``render_rows_kernel`` is.
 
     ``camera`` defaults to the reference pose. ``shadow_iters`` sets the
     Newton steps of the shadow-occlusion solves, clamped to
