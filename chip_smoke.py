@@ -10,18 +10,25 @@ result line):
    CUDA and nvcc versions;
 2. build: compile every kernel of the path from csrc/, one nvcc per source,
    all started together (timed as set-up);
-3. main path: load scenes/dingdong.yml and render it at 1280x720 from the
-   reference pose through ``render_image_kernel``, with every launch count
-   set to 0 just before and read just after; check the frame;
+3. main path: load scenes/dingdong.yml (onto the card, the loader's
+   default) and render it at 1280x720 from the reference pose through
+   ``render_image_kernel``, with every launch count set to 0 just before and
+   read just after (the forward's main instantiation must have run); check
+   the frame;
 4. parity: all 8 bundled scenes at full size through ``render_image_kernel``
    against bench_goldens/<scene>.npz, each within its gate
    (tpu_ray_tracer_torch.parity.PARITY_GATES, the JAX bench's gates);
 5. kernel vs plain: the kernel against ``render_fwd_plain`` on the same
-   CUDA tables, every scene at the reference pose and dingdong at an off
-   pose, at most 1e-3 of the pixels differing by more than 2/255 per frame;
+   CUDA tables, every scene at the reference pose, dingdong at an off pose
+   and dingdong with polish 2 (the generic instantiation; the others run the
+   main ones, reflection_test the one with a chain), at most 1e-3 of the
+   pixels differing by more than 2/255 per frame;
 6. timing: CUDA events over 32 frames of dingdong 1280x720 at yaws
-   90 + 1e-3 k after warm-up (kernel alone, whole call, plain version), and
-   the kernel alone per scene;
+   90 + 1e-3 k after warm-up (the kernel alone as device time of its
+   launches run back to back; the whole call and the plain version with the
+   host's gaps), and
+   the kernel alone per scene, each beside its bound
+   (tpu_ray_tracer_torch/render/bounds.py, counted from that frame's aux);
 7a. the main path with a gradient: dingdong 1280x720 through
    ``render_image_kernel`` with every differentiable scene and camera
    tensor requiring grad, then ``loss.backward()``, the counts set to 0
@@ -37,10 +44,15 @@ result line):
    at the true values: the loss falls at every step;
 7e. timing by CUDA events over 32 frames of the yaw sweep:
    ``render_fwd(save_aux=True)``, ``render_bwd`` alone, the whole fwd+bwd
-   call, and ``render_bwd_plain`` once.
+   call, and ``render_bwd_plain`` once, each kernel beside its bound
+   (counted from the timed frames' own aux); the backward alone on
+   20spheres and reflection_test beside its bound.
 
 The last lines are the card's name and power limit, a {"kernels": [...]}
-line, and {"ok": true, "device": {...}}.
+line (each kernel's launches on the main path, its time, its plain
+version's, its bound and share of the bound on dingdong 1280x720; no single
+PyTorch call computes either function, so ``library_ms`` is null), and
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -82,21 +94,6 @@ def nvcc_version(nvcc: str) -> str:
     return out.strip().splitlines()[-1]
 
 
-def timed_ms(fn, frames: int) -> float:
-    """Device time per call of ``fn(k)`` for k in range(frames), by CUDA
-    events around the whole run (host gaps between calls included)."""
-    import torch
-
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for k in range(frames):
-        fn(k)
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / frames
-
-
 def main() -> int:
     import torch
 
@@ -109,9 +106,10 @@ def main() -> int:
     import numpy as np
 
     import tpu_ray_tracer_torch as ttt
+    from tpu_ray_tracer_torch.kernel_bench import timed_ms
     from tpu_ray_tracer_torch.parity import (PARITY_GATES, bad_pixel_fraction,
                                              gradient_group_errors)
-    from tpu_ray_tracer_torch.render import _build
+    from tpu_ray_tracer_torch.render import _build, bounds
     from tpu_ray_tracer_torch.render.bwd_kernel import render_bwd, render_bwd_plain
     from tpu_ray_tracer_torch.render.fwd_kernel import render_fwd, render_fwd_plain
     from tpu_ray_tracer_torch.render.kernel_backend import pack_frame
@@ -150,24 +148,35 @@ def main() -> int:
                           pitch_deg=torch.tensor(pitch, dtype=torch.float32, device=dev))
 
     # --- 3. main path: dingdong 1280x720, reference pose ---
-    ding = load("dingdong").to(dev)
-    render_fwd.launches = 0
+    def zero_counts():
+        render_fwd.launches = render_bwd.launches = 0
+        for counts in (render_fwd.launches_by_variant, render_bwd.launches_by_placement):
+            for key in counts:
+                counts[key] = 0
+
+    ding = load("dingdong")
+    if ding.coefs.device.type != "cuda":
+        raise RuntimeError(f"main path: the loader put the scene on {ding.coefs.device}")
+    zero_counts()
     image = ttt.render_image_kernel(ding)
     torch.cuda.synchronize()
     main_launches = render_fwd.launches
-    if main_launches < 1:
-        raise RuntimeError("main path: render_image_kernel never launched render_fwd")
+    main_variants = {k: v for k, v in render_fwd.launches_by_variant.items() if v}
+    if main_launches < 1 or main_variants != {"main": main_launches}:
+        raise RuntimeError(f"main path: render_fwd launches {main_launches}, by "
+                           f"instantiation {main_variants}; expected the main one")
     image = image.cpu().numpy()
     if image.shape != (720, 1280, 3) or not np.isfinite(image).all():
         raise RuntimeError(f"main path: bad frame shape {image.shape} or non-finite values")
     frac = bad_pixel_fraction(image, golden("dingdong"))
     log(f"[main] dingdong 1280x720 via render_image_kernel: launches={main_launches} "
+        f"{main_variants} "
         f"bad-px vs golden {frac:.6f} (gate {PARITY_GATES['dingdong']})")
     if frac > PARITY_GATES["dingdong"]:
         raise RuntimeError("main path: dingdong over its parity gate")
 
     # --- 4. parity against the goldens, all scenes at full size ---
-    scenes = {name: load(name).to(dev) for name in SCENES}
+    scenes = {name: load(name) for name in SCENES}
     parity = {}
     for name, scene in scenes.items():
         before = render_fwd.launches
@@ -183,12 +192,13 @@ def main() -> int:
         raise RuntimeError(f"parity gate exceeded: {over}")
 
     # --- 5. kernel against its plain version on the same CUDA tables ---
-    cases = [(name, camera()) for name in SCENES]
-    cases.append(("dingdong@off", camera(*OFF_POSE)))
+    cases = [(name, camera(), 3) for name in SCENES]
+    cases += [("dingdong@off", camera(*OFF_POSE), 3), ("dingdong@polish2", camera(), 2)]
     worst_frac, worst_abs = 0.0, 0.0
-    for label, cam in cases:
+    zero_counts()
+    for label, cam, polish in cases:
         scene = scenes[label.split("@")[0]]
-        tables, kw = pack_frame(scene, cam, 0, scene.height)
+        tables, kw = pack_frame(scene, cam, 0, scene.height, polish_iters=polish)
         k_img = render_fwd(*tables, **kw).cpu().numpy()
         p_img = render_fwd_plain(*tables, **kw).cpu().numpy()
         frac = bad_pixel_fraction(k_img, p_img)
@@ -197,6 +207,9 @@ def main() -> int:
         log(f"[vs-plain] {label}: bad-px {frac:.6f} max|diff| {max_abs:.6f}")
         if frac > MAX_BAD_VS_PLAIN:
             raise RuntimeError(f"kernel vs plain {label}: {frac} > {MAX_BAD_VS_PLAIN}")
+    log(f"[vs-plain] launches by instantiation {render_fwd.launches_by_variant}")
+    if not all(render_fwd.launches_by_variant.values()):
+        raise RuntimeError("kernel vs plain: an instantiation of render_fwd never ran")
 
     # --- 6. timing (dingdong 1280x720, the JAX bench's yaw sweep) ---
     n_px = ding.width * ding.height
@@ -206,7 +219,8 @@ def main() -> int:
     for tables, kw in frames[:2]:  # warm-up
         render_fwd(*tables, **kw)
         render_fwd_plain(*tables, **kw)
-    kernel_ms = timed_ms(lambda k: render_fwd(*frames[k][0], **frames[k][1]), TIMED_FRAMES)
+    kernel_ms = timed_ms(lambda k: render_fwd(*frames[k][0], **frames[k][1]), TIMED_FRAMES,
+                         device_only=True)
     call_ms = timed_ms(lambda k: ttt.render_image_kernel(ding, cams[k]), TIMED_FRAMES)
     plain_ms = timed_ms(lambda k: render_fwd_plain(*frames[k][0], **frames[k][1]),
                         PLAIN_FRAMES)
@@ -216,10 +230,15 @@ def main() -> int:
             f"{n_px / ms / 1e3:.2f} Mrays/s ({smi})")
     for name, scene in scenes.items():
         tables, kw = pack_frame(scene, camera(), 0, scene.height)
-        render_fwd(*tables, **kw)
-        ms = timed_ms(lambda k: render_fwd(*tables, **kw), TIMED_FRAMES)
+        aux = render_fwd(*tables, **kw, save_aux=True)[1:]
+        work = bounds.fwd_work(tables, kw, aux)
+        bound, bound_by = bounds.bound_ms(work["ops"], work["bytes"])
+        ms = timed_ms(lambda k: render_fwd(*tables, **kw), TIMED_FRAMES, device_only=True)
         log(f"[time] kernel {name} {scene.width}x{scene.height}: {ms:.4f} ms/frame "
-            f"{scene.width * scene.height / ms / 1e3:.2f} Mrays/s ({smi})")
+            f"{scene.width * scene.height / ms / 1e3:.2f} Mrays/s, bound {bound:.4f} ms "
+            f"({bound_by}, {work['ops'] / (scene.width * scene.height):.0f} ops/px), "
+            f"share {bound / ms:.3f}, hit share {float((aux[1][0] >= 0).float().mean()):.4f} "
+            f"({smi})")
     # --- 7a. the main path with a gradient ---
     def grad_leaves(scene, cam):
         """The scene and camera with every differentiable tensor a leaf."""
@@ -232,11 +251,13 @@ def main() -> int:
     w = torch.linspace(0.1, 1.0, ding.height * ding.width * 3, device=dev).reshape(
         ding.height, ding.width, 3)
     g_scene, g_cam, leaves = grad_leaves(ding, camera(pitch=5.0))
-    render_fwd.launches = render_bwd.launches = 0
+    zero_counts()
     (w * ttt.render_image_kernel(g_scene, g_cam)).sum().backward()
     torch.cuda.synchronize()
     grad_launches = {"render_fwd": render_fwd.launches, "render_bwd": render_bwd.launches}
-    log(f"[grad] dingdong 1280x720 loss.backward(): launches {grad_launches}")
+    grad_detail = {k: v for k, v in {**render_fwd.launches_by_variant,
+                                     **render_bwd.launches_by_placement}.items() if v}
+    log(f"[grad] dingdong 1280x720 loss.backward(): launches {grad_launches} {grad_detail}")
     if grad_launches != {"render_fwd": 1, "render_bwd": 1}:
         raise RuntimeError(f"grad path: expected one launch of each kernel, got {grad_launches}")
     for name, leaf in leaves.items():
@@ -256,12 +277,12 @@ def main() -> int:
         args = (tables[0], tables[2], tables[3], tables[4], tables[7], grad, *aux)
         bkw = dict(width=kw["width"], height=kw["height"], rows=kw["rows"],
                    n_lights=tables[4].shape[0], bounces=kw["bounces"])
-        return args, bkw
+        return args, bkw, (tables, kw, aux)
 
     bwd_worst_abs = bwd_worst_rel = 0.0
     for name in ("dingdong", "reflection_test", "20spheres"):
         scene = scenes[name]
-        args, bkw = bwd_case(scene, camera(pitch=5.0))
+        args, bkw, _ = bwd_case(scene, camera(pitch=5.0))
         k_vec = render_bwd(*args, **bkw)
         p_vec = render_bwd_plain(*args, **bkw)
         if not torch.isfinite(k_vec).all():
@@ -329,8 +350,9 @@ def main() -> int:
     render_bwd_plain(*bwd_args(0)[0], **bwd_args(0)[1])
     fwd_bwd(0)
     aux_ms = timed_ms(lambda k: render_fwd(*frames[k][0], **frames[k][1], save_aux=True),
-                      TIMED_FRAMES)
-    bwd_ms = timed_ms(lambda k: render_bwd(*bwd_args(k)[0], **bwd_args(k)[1]), TIMED_FRAMES)
+                      TIMED_FRAMES, device_only=True)
+    bwd_ms = timed_ms(lambda k: render_bwd(*bwd_args(k)[0], **bwd_args(k)[1]), TIMED_FRAMES,
+                      device_only=True)
     fwd_bwd_ms = timed_ms(fwd_bwd, TIMED_FRAMES)
     bwd_plain_ms = timed_ms(lambda k: render_bwd_plain(*bwd_args(k)[0], **bwd_args(k)[1]), 1)
     for what, ms in (("render_fwd(save_aux=True) kernel", aux_ms),
@@ -339,6 +361,33 @@ def main() -> int:
                      ("render_bwd_plain", bwd_plain_ms)):
         log(f"[time] dingdong 1280x720 {what}: {ms:.4f} ms/frame "
             f"{n_px / ms / 1e3:.2f} Mrays/s ({smi})")
+
+    # --- bounds of the timed dingdong frames, from each frame's own aux ---
+    works = [bounds.fwd_work(t, kw, a) for (t, kw), a in zip(frames, aux_frames)]
+    fwd_ops = sum(wk["ops"] for wk in works) / len(works)
+    fwd_bound, fwd_bound_by = bounds.bound_ms(fwd_ops, works[0]["bytes"])
+    aux_bound, _ = bounds.bound_ms(fwd_ops, works[0]["bytes_save_aux"])
+    bwd_works = [bounds.bwd_work(t, kw, a) for (t, kw), a in zip(frames, aux_frames)]
+    bwd_ops = sum(wk["ops"] for wk in bwd_works) / len(bwd_works)
+    bwd_bound, bwd_bound_by = bounds.bound_ms(bwd_ops, bwd_works[0]["bytes"])
+    hit_share = float((aux_frames[0][1][0] >= 0).float().mean())
+    log(f"[bound] dingdong 1280x720 hit share {hit_share:.4f} (stage 0 of frame 0)")
+    for what, ms, bound, by, ops in (
+            ("render_fwd", kernel_ms, fwd_bound, fwd_bound_by, fwd_ops),
+            ("render_fwd(save_aux=True)", aux_ms, aux_bound, fwd_bound_by, fwd_ops),
+            ("render_bwd", bwd_ms, bwd_bound, bwd_bound_by, bwd_ops)):
+        log(f"[bound] dingdong 1280x720 {what}: {ops / n_px:.0f} ops/px, bound {bound:.4f} ms "
+            f"({by}), time {ms:.4f} ms, share {bound / ms:.3f} ({smi})")
+    for name in ("20spheres", "reflection_test"):
+        scene = scenes[name]
+        args, bkw, frame = bwd_case(scene, camera())
+        ms = timed_ms(lambda k: render_bwd(*args, **bkw), TIMED_FRAMES, device_only=True)
+        wk = bounds.bwd_work(*frame)
+        bound, by = bounds.bound_ms(wk["ops"], wk["bytes"])
+        log(f"[bound] {name} {scene.width}x{scene.height} render_bwd: {ms:.4f} ms, bound "
+            f"{bound:.4f} ms ({by}, {wk['ops'] / (scene.width * scene.height):.0f} ops/px), "
+            f"share {bound / ms:.3f}, hit share "
+            f"{float((frame[2][1][0] >= 0).float().mean()):.4f} ({smi})")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     print(smi)
@@ -347,13 +396,19 @@ def main() -> int:
         "route": "cuda",
         "source": "tpu_ray_tracer_torch/csrc/render_fwd.cu",
         "replaces": "tpu_ray_tracer/render/pallas_backend.py:978",
-        "launches": grad_launches["render_fwd"],
-        "launches_forward_path": main_launches,
+        "launches": main_launches + grad_launches["render_fwd"],
+        "launches_by_path": {"forward": main_launches, "gradient": grad_launches["render_fwd"]},
         "max_abs_err": worst_abs,
         "worst_bad_px_vs_plain": worst_frac,
         "ms": kernel_ms,
-        "ms_save_aux": aux_ms,
         "plain_ms": plain_ms,
+        "bound_ms": fwd_bound,
+        "bound_by": fwd_bound_by,
+        "library_ms": None,
+        "share_of_bound": fwd_bound / kernel_ms,
+        "ops_per_px": fwd_ops / n_px,
+        "ms_save_aux": aux_ms,
+        "bound_ms_save_aux": aux_bound,
     }, {
         "name": "render_bwd",
         "route": "cuda",
@@ -364,6 +419,11 @@ def main() -> int:
         "worst_group_relerr_vs_plain": bwd_worst_rel,
         "ms": bwd_ms,
         "plain_ms": bwd_plain_ms,
+        "bound_ms": bwd_bound,
+        "bound_by": bwd_bound_by,
+        "library_ms": None,
+        "share_of_bound": bwd_bound / bwd_ms,
+        "ops_per_px": bwd_ops / n_px,
         "fwd_bwd_call_ms": fwd_bwd_ms,
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

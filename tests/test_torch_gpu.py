@@ -21,9 +21,11 @@ from tpu_ray_tracer_torch.models import light as tlight
 from tpu_ray_tracer_torch.models import surface as tsurface
 from tpu_ray_tracer_torch.models.scene import Object
 from tpu_ray_tracer_torch.parity import bad_pixel_fraction, gradient_group_errors
-from tpu_ray_tracer_torch.render.bwd_kernel import acc_layout, render_bwd, render_bwd_plain
-from tpu_ray_tracer_torch.render.fwd_kernel import (_eval_F_and_grad, _powers3, render_fwd,
-                                                    render_fwd_plain)
+from tpu_ray_tracer_torch.render import _build
+from tpu_ray_tracer_torch.render.bwd_kernel import (acc_layout, bwd_plan, render_bwd,
+                                                    render_bwd_plain)
+from tpu_ray_tracer_torch.render.fwd_kernel import (FWD_VARIANTS, _eval_F_and_grad, _powers3,
+                                                    fwd_variant, render_fwd, render_fwd_plain)
 from tpu_ray_tracer_torch.render.kernel_backend import pack_frame, render_rows_kernel
 
 pytestmark = pytest.mark.gpu
@@ -43,8 +45,8 @@ def cuda():
 
 
 def _scene(name, device, width=64, height=48):
-    scene = ttt.load_from_file(SCENE_DIR / f"{name}.yml")
-    return dataclasses.replace(scene, width=width, height=height).to(device)
+    scene = ttt.load_from_file(SCENE_DIR / f"{name}.yml", device=device)
+    return dataclasses.replace(scene, width=width, height=height)
 
 
 def _camera(pose, device):
@@ -88,7 +90,8 @@ def test_empty_tables(cuda, case):
     sphere = Object(tsurface.sphere((0, 0, 8), 2.0), 0.3, np.float32([0.8, 0.2, 0.1]))
     sun = tlight.directional(2.0, (0.3, -1, 0.5), (1, 1, 1))
     objects, lights = ([], [sun]) if case == "no_objects" else ([sphere], [])
-    scene = ttt.build_scene(32, 24, 40.0, objects, lights, bg_color=(0.0, 0.1, 0.2)).to(cuda)
+    scene = ttt.build_scene(32, 24, 40.0, objects, lights, bg_color=(0.0, 0.1, 0.2),
+                            device=cuda)
     out, plain = _kernel_and_plain(*pack_frame(scene, _camera(POSES[0], cuda), 0, 24))
     assert bad_pixel_fraction(out, plain) == 0.0
     if case == "no_objects":
@@ -106,7 +109,7 @@ def test_many_lights_and_large_tables(cuda):
     lights = [tlight.directional(0.05, rng.uniform(-1, 1, 3) - [0, 1, 0], (1, 1, 1))
               for _ in range(300)]
     lights.append(tlight.spherical(300.0, (0, 6, 6), (1, 1, 1)))
-    scene = ttt.build_scene(48, 32, 50.0, objects, lights, max_reflections=2).to(cuda)
+    scene = ttt.build_scene(48, 32, 50.0, objects, lights, max_reflections=2, device=cuda)
     tables, kw = pack_frame(scene, _camera(POSES[0], cuda), 0, 32)
     assert sum(t.numel() * t.element_size() for t in tables) > 48 * 1024
     out, plain = _kernel_and_plain(tables, kw)
@@ -219,7 +222,7 @@ def test_bwd_kernel_matches_plain(cuda, name):
         _kernel_vs_plain_bwd(args, bkw, (name, pose))
 
 
-def _many_lights_scene(n_lights, width=24, height=8):
+def _many_lights_scene(n_lights, device, width=24, height=8):
     """tests/test_degenerate.py's fan of directional lights over a sphere
     and a plane."""
     objects = [Object(tsurface.sphere((0.0, 0.0, 6.0), 2.0), 0.0, np.float32([0.8, 0.3, 0.2])),
@@ -231,16 +234,19 @@ def _many_lights_scene(n_lights, width=24, height=8):
         lights.append(tlight.directional(
             0.08, (np.cos(ang) * 0.5, -1.0, np.sin(ang) * 0.5 + 0.3),
             (1.0, 1.0 - 0.5 * (i % 3) / 2.0, 0.5 + 0.5 * (i % 2))))
-    return ttt.build_scene(width, height, 60.0, objects, lights, bg_color=(0.1, 0.1, 0.1))
+    return ttt.build_scene(width, height, 60.0, objects, lights, bg_color=(0.1, 0.1, 0.1),
+                           device=device)
 
 
 @pytest.mark.parametrize("case", ["31_lights", "deep_chain", "global_rows"])
 def test_bwd_kernel_edges(cuda, case):
     """31 lights (the last the i32 mask holds); a chain deeper than the
     kernel's per-thread stage array (rebuilt stages); more accumulator rows
-    than shared memory holds (the warp copies in global scratch)."""
+    than shared memory holds (the warp copies in global scratch; the tables
+    leave too little room for columns, so every row is summed by warp
+    reductions)."""
     if case == "31_lights":
-        scene = _many_lights_scene(31, 48, 32).to(cuda)
+        scene = _many_lights_scene(31, cuda, 48, 32)
         args, bkw = _bwd_case(scene, _camera(POSES[0], cuda), polish_iters=2)
     elif case == "deep_chain":
         # a floor and a ceiling that both reflect: rays bounce to the cap
@@ -251,7 +257,8 @@ def test_bwd_kernel_edges(cuda, case):
                    Object(tsurface.sphere((0.5, 0.0, 9.0), 1.0), 0.3, np.float32([0.9, 0.2, 0.2]))]
         lights = [tlight.directional(1.0, (0.3, -1.0, 0.4), (1, 1, 1)),
                   tlight.spherical(200.0, (0.0, 1.5, 6.0), (1, 1, 1))]
-        scene = ttt.build_scene(48, 36, 60.0, objects, lights, max_reflections=11).to(cuda)
+        scene = ttt.build_scene(48, 36, 60.0, objects, lights, max_reflections=11,
+                                device=cuda)
         args, bkw = _bwd_case(scene, _camera(((0.0, 0.0, 0.0), 90.0, -10.0), cuda))
         assert bkw["bounces"] == 11
         assert (args[7][8:] >= 0).any()  # some pixel reaches a rebuilt stage
@@ -261,9 +268,10 @@ def test_bwd_kernel_edges(cuda, case):
                           rng.uniform(0, 1, 3).astype(np.float32)) for _ in range(600)]
         lights = [tlight.directional(1.0, (0.3, -1.0, 0.4), (1, 1, 1)),
                   tlight.spherical(400.0, (0.0, 8.0, 10.0), (1, 1, 1))]
-        scene = ttt.build_scene(32, 24, 60.0, objects, lights).to(cuda)
+        scene = ttt.build_scene(32, 24, 60.0, objects, lights, device=cuda)
         args, bkw = _bwd_case(scene, _camera(POSES[0], cuda))
         assert acc_layout(600, 2)[-1] * 4 * 4 > 200 * 1024  # 4 warp copies
+        assert bwd_plan(32, 24, 600, 2, 0)[0] == "warp"
     _kernel_vs_plain_bwd(args, bkw, case)
 
 
@@ -300,3 +308,92 @@ def test_backward_launches_once_each(cuda):
     for name, leaf in [*leaves.items(), *zip(("position", "yaw", "pitch"), cam_leaves)]:
         assert leaf.grad is not None and torch.isfinite(leaf.grad).all(), name
     assert float(leaves["coefs"].grad.abs().max()) > 0
+
+
+# --- the forward's instantiations and the backward's row placements ---
+
+FWD_COUNTS = [(3, 3, 1), (2, 2, 2), (0, 3, 1)]  # polish, screen, shadow
+
+
+@pytest.mark.parametrize("name", SCENES)
+def test_fwd_instantiations_match_plain(cuda, name):
+    """Each instantiation of the forward kernel against the plain version:
+    the main counts (polish 3, screen 3, shadow 1; bounces 0 runs "main",
+    reflection_test's chain "main_chain") and the generic one with other
+    counts (2/2/2, and polish 0); the launch is counted under the
+    instantiation that ran."""
+    scene = _scene(name, cuda)
+    tables, kw = pack_frame(scene, _camera(POSES[1], cuda), 0, scene.height)
+    for polish, screen, shadow in FWD_COUNTS:
+        case = {**kw, "polish_iters": polish, "screen_iters": screen, "shadow_iters": shadow}
+        want = ("generic" if (polish, screen, shadow) != (3, 3, 1)
+                else "main" if kw["bounces"] == 0 else "main_chain")
+        assert fwd_variant(polish, screen, shadow, kw["bounces"]) == want
+        before = dict(render_fwd.launches_by_variant)
+        out = render_fwd(*tables, **case).cpu().numpy()
+        torch.cuda.synchronize()
+        assert render_fwd.launches_by_variant[want] == before[want] + 1
+        plain = render_fwd_plain(*tables, **case).cpu().numpy()
+        assert np.isfinite(out).all()
+        assert bad_pixel_fraction(out, plain) <= MAX_BAD_VS_PLAIN, (name, case)
+
+
+def test_fwd_launcher_refuses_a_variant_that_does_not_fit(cuda):
+    """The main instantiations compile the counts in: asked for other
+    counts, or "main" with a chain, the launcher returns
+    cudaErrorInvalidValue (1) and launches nothing."""
+    scene = _scene("reflection_test", cuda)
+    tables, kw = pack_frame(scene, _camera(POSES[0], cuda), 0, scene.height)
+    out = torch.empty((kw["rows"], kw["width"], 3), device=cuda)
+    lib = _build.load("render_fwd")
+    stream = torch.cuda.current_stream().cuda_stream
+    for polish, variant in ((2, "main_chain"), (3, "main")):
+        rc = lib.trt_render_fwd(
+            *(t.data_ptr() for t in tables), out.data_ptr(), None, None, None,
+            kw["width"], kw["height"], kw["rows"], tables[0].shape[0], kw["n_cubic"],
+            tables[4].shape[0], polish, kw["shadow_iters"], kw["screen_iters"], kw["bounces"],
+            FWD_VARIANTS.index(variant), stream)
+        assert rc == 1, (polish, variant)
+
+
+def test_main_path_launch_counts(cuda):
+    """render_image_kernel runs "main" on dingdong, "main_chain" on
+    reflection_test and "generic" with polish 2."""
+    for name, polish, want in (("dingdong", 3, "main"), ("reflection_test", 3, "main_chain"),
+                               ("dingdong", 2, "generic")):
+        before = dict(render_fwd.launches_by_variant)
+        ttt.render_image_kernel(_scene(name, cuda), polish_iters=polish)
+        after = render_fwd.launches_by_variant
+        assert {k: after[k] - before[k] for k in after} == {
+            k: int(k == want) for k in after}, (name, polish)
+
+
+@pytest.mark.parametrize("name,placement", [("dingdong", "columns"),
+                                            ("reflection_test", "columns"),
+                                            ("20spheres", "light_columns")])
+def test_bwd_placements_match_plain(cuda, name, placement):
+    """The row placement the launcher picks (every row in the threads'
+    columns where they fit, the light rows only on 20spheres; the warp
+    placement is the 600-object case of test_bwd_kernel_edges) against the
+    plain version, counted under that placement, bitwise the same on a
+    second call."""
+    scene = _scene(name, cuda)
+    args, bkw = _bwd_case(scene, _camera(POSES[1], cuda))
+    assert bwd_plan(bkw["width"], bkw["rows"], args[0].shape[0], bkw["n_lights"],
+                    bkw["bounces"])[0] == placement
+    before = render_bwd.launches_by_placement[placement]
+    vec = _kernel_vs_plain_bwd(args, bkw, (name, placement))
+    assert render_bwd.launches_by_placement[placement] == before + 1
+    assert torch.equal(render_bwd(*args, **bkw), vec)
+
+
+def test_bwd_ragged_grid(cuda):
+    """1000x37 pixels fill no whole number of blocks (of 64 or 128 threads)
+    or of waves: the kernel against the plain version."""
+    scene = _scene("dingdong", cuda, 1000, 37)
+    args, bkw = _bwd_case(scene, _camera(POSES[0], cuda))
+    placement, blocks, _ = bwd_plan(1000, 37, args[0].shape[0], bkw["n_lights"],
+                                    bkw["bounces"])
+    assert (1000 * 37) % (blocks * 64) != 0
+    assert placement == "columns"
+    _kernel_vs_plain_bwd(args, bkw, "1000x37")

@@ -195,7 +195,7 @@ def test_gradient_outside_fused_domain_raises(monkeypatch, case):
         tscene = to_torch(_scene_many_lights(n=33, width=24, height=8))
     else:
         tscene = ttt.build_scene(16, 8, 60.0, [], [tlight.directional(
-            1.0, (0.0, -1.0, 0.0), (1.0, 1.0, 1.0))], bg_color=(0.3, 0.6, 0.9))
+            1.0, (0.0, -1.0, 0.0), (1.0, 1.0, 1.0))], bg_color=(0.3, 0.6, 0.9), device="cpu")
     image = ttt.render_image_kernel(tscene)
     assert image.shape == (8, tscene.width, 3) and torch.isfinite(image).all()
     spy = _FwdSpy(monkeypatch)
@@ -239,7 +239,8 @@ def test_optimizer_step_refreshes_statics():
                       np.float32([0.2, 0.6, 0.9]))]
     lights = [tlight.directional(1.5, (0.3, -1.0, 0.5), (1.0, 1.0, 1.0)),
               tlight.spherical(300.0, (0.0, 4.0, 2.0), (1.0, 0.9, 0.8))]
-    tscene = ttt.build_scene(32, 16, 60.0, objects, lights, bg_color=(0.1, 0.1, 0.1))
+    tscene = ttt.build_scene(32, 16, 60.0, objects, lights, bg_color=(0.1, 0.1, 0.1),
+                             device="cpu")
     coefs = tscene.coefs.clone().requires_grad_()
     scene = dataclasses.replace(tscene, coefs=coefs)
     assert kernel_backend._statics_for(coefs)[1] == 0  # both quadrics

@@ -22,7 +22,9 @@ from tpu_ray_tracer_torch.models import light as tlight
 from tpu_ray_tracer_torch.models import surface as tsurface
 from tpu_ray_tracer_torch.models.scene import Object, camera_from_arrays, scene_from_arrays
 from tpu_ray_tracer_torch.parity import bad_pixel_fraction
-from tpu_ray_tracer_torch.render.fwd_kernel import render_fwd
+from tpu_ray_tracer_torch.models.surface import MONOMIAL_POWERS
+from tpu_ray_tracer_torch.render.fwd_kernel import (_eye_coeffs, _eye_ray_coeffs, _powers3,
+                                                    _ray_coeffs, render_fwd)
 from tpu_ray_tracer_torch.render.kernel_backend import pack_frame, render_rows_kernel
 
 from conftest import SCENE_NAMES, scene_path
@@ -37,7 +39,7 @@ def _small(name, width=64, height=48):
     """The same scene at a test size in both packages."""
     return (dataclasses.replace(trt.load_from_file(scene_path(name)), width=width,
                                 height=height),
-            dataclasses.replace(ttt.load_from_file(scene_path(name)), width=width,
+            dataclasses.replace(ttt.load_from_file(scene_path(name), device="cpu"), width=width,
                                 height=height))
 
 
@@ -125,7 +127,7 @@ def _both_scenes(objects, lights):
               bg_color=(0.0, 0.1, 0.2))
     jobjects = [trt.models.scene.Object(o.surface, o.reflection_ratio, o.color)
                 for o in objects]
-    return trt.build_scene(**{**kw, "objects": jobjects}), ttt.build_scene(**kw)
+    return trt.build_scene(**{**kw, "objects": jobjects}), ttt.build_scene(**kw, device="cpu")
 
 
 @pytest.mark.parametrize("case", ["no_objects", "no_lights"])
@@ -146,6 +148,42 @@ def test_empty_scenes_match_reference(case):
                                                            img.shape))
     else:
         assert bad_pixel_fraction(img, render_image_np(jscene)) == 0.0
+
+
+def test_eye_hoisted_coefficients_match_binomial_expansion():
+    """Stage 0's t-polynomial from the eye-hoisted coefficients
+    (``_eye_coeffs``, ``_eye_ray_coeffs``) against the binomial expansion
+    ``_ray_coeffs`` and against a direct fit of F(e + t d) at t = 0..3, all
+    in f64, on random coefficients, eyes and unit directions made with numpy
+    from a seed: within 1e-12 (expansion) and 1e-9 (fit) of the scale
+    sum_m |c_m| (1 + |e|)^3. In f32 (the kernels' type) within 1e-5 of it."""
+    rng = np.random.default_rng(20261016)
+    powers = np.asarray(MONOMIAL_POWERS)
+    for _ in range(16):
+        coef = rng.normal(size=20)
+        eye = rng.uniform(-3.0, 3.0, 3)
+        d = rng.normal(size=(32, 3))
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        scale = np.abs(coef).sum() * (1.0 + np.abs(eye).max()) ** 3
+
+        def both(dtype):
+            c = [torch.tensor(v, dtype=dtype) for v in coef]
+            e = _powers3(*(torch.tensor(v, dtype=dtype) for v in eye))
+            dp = _powers3(*torch.tensor(d, dtype=dtype).unbind(1))
+            one = torch.ones(32, dtype=dtype)
+            hoisted = _eye_ray_coeffs(_eye_coeffs(c, e, torch.ones((), dtype=dtype)), dp, one)
+            return (torch.stack(hoisted).double().numpy(),
+                    torch.stack(_ray_coeffs(c, e, dp, one)).double().numpy())
+
+        hoisted, expansion = both(torch.float64)
+        np.testing.assert_allclose(hoisted, expansion, rtol=0, atol=1e-12 * scale)
+        ts = np.arange(4.0)
+        pts = eye[None, None, :] + ts[None, :, None] * d[:, None, :]  # [32, 4, 3]
+        f = (coef * np.prod(pts[..., None, :] ** powers, axis=-1)).sum(-1)  # [32, 4]
+        fit = np.linalg.solve(np.vander(ts, 4), f.T)  # rows t3, t2, t1, t0
+        np.testing.assert_allclose(hoisted, fit, rtol=0, atol=1e-9 * scale)
+        hoisted32, _ = both(torch.float32)
+        np.testing.assert_allclose(hoisted32, expansion, rtol=0, atol=1e-5 * scale)
 
 
 def test_launch_counter_stays_zero_on_cpu():

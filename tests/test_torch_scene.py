@@ -3,6 +3,8 @@ JAX package: the same YAML gives the same tables, the same errors, the same
 camera rays and the same packed kernel tables."""
 
 import ast
+import dataclasses
+import functools
 import importlib.util
 import pathlib
 
@@ -94,13 +96,13 @@ def _assert_same_tables(jscene, tscene):
 @pytest.mark.parametrize("name", SCENE_NAMES)
 def test_scene_tables_equal_jax(name):
     _assert_same_tables(trt.load_from_file(scene_path(name)),
-                        ttt.load_from_file(scene_path(name)))
+                        ttt.load_from_file(scene_path(name), device="cpu"))
 
 
 @pytest.mark.parametrize("name", sorted(LOADER_OK))
 def test_loaded_documents_equal_jax(name):
     text = LOADER_OK[name]
-    _assert_same_tables(trt.load_from_string(text), ttt.load_from_string(text))
+    _assert_same_tables(trt.load_from_string(text), ttt.load_from_string(text, device="cpu"))
 
 
 def _message(load, arg):
@@ -112,14 +114,37 @@ def _message(load, arg):
 @pytest.mark.parametrize("name,text", LOADER_ERRORS, ids=[c[0] for c in LOADER_ERRORS])
 def test_loader_error_messages_equal_jax(name, text):
     jmsg = _message(trt.load_from_string, text)
-    tmsg = _message(ttt.load_from_string, text)
+    tmsg = _message(functools.partial(ttt.load_from_string, device="cpu"), text)
     assert jmsg[0] == tmsg[0] == "SceneError"
     assert tmsg == jmsg
 
 
+def test_entry_points_default_to_the_card():
+    """The loaders and build_scene put the tables on the GPU unless asked
+    otherwise: without one the default raises and names the device, and
+    device="cpu" gives CPU tables equal to the JAX package's."""
+    path = scene_path("dingdong")
+    entries = [lambda **kw: ttt.load_from_file(path, **kw),
+               lambda **kw: ttt.load_from_string(LOADER_OK["minimal_defaults"], **kw),
+               lambda **kw: ttt.build_scene(8, 6, 40.0, [], [], **kw)]
+    for entry in entries:
+        if torch.cuda.is_available():
+            assert entry().coefs.device.type == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match=r"no CUDA device.*device=\"cpu\""):
+                entry()
+        scene = entry(device="cpu")
+        assert all(getattr(scene, f).device.type == "cpu" for f in FIELDS)
+    _assert_same_tables(trt.load_from_file(path), ttt.load_from_file(path, device="cpu"))
+    assert kb.render_image_kernel(
+        dataclasses.replace(ttt.load_from_file(path, device="cpu"), width=4, height=2)
+    ).device.type == "cpu"
+
+
 def test_missing_file_message_equals_jax():
     path = "/nonexistent/scene.yml"
-    assert _message(ttt.load_from_file, path) == _message(trt.load_from_file, path)
+    assert (_message(functools.partial(ttt.load_from_file, device="cpu"), path)
+            == _message(trt.load_from_file, path))
 
 
 def test_scene_from_arrays_and_astype_to():
@@ -134,7 +159,8 @@ def test_scene_from_arrays_and_astype_to():
     moved = tscene.to("cpu")
     assert all(getattr(moved, f).device.type == "cpu" for f in FIELDS)
     assert static_bounce_count(tscene) == 0
-    assert static_bounce_count(ttt.load_from_file(scene_path("reflection_test"))) == 5
+    assert static_bounce_count(ttt.load_from_file(scene_path("reflection_test"),
+                                                  device="cpu")) == 5
 
 
 @pytest.mark.parametrize("dtype,atol", [("float64", 1e-12), ("float32", 1e-6)])
@@ -176,7 +202,7 @@ def test_camera_initial():
 @pytest.mark.parametrize("name", SCENE_NAMES)
 def test_statics_and_packing_match_jax(name):
     jscene = trt.load_from_file(scene_path(name))
-    tscene = ttt.load_from_file(scene_path(name))
+    tscene = ttt.load_from_file(scene_path(name), device="cpu")
     cc = np.asarray(jscene.coefs)
 
     jperm, jn = pb._degree_partition(cc)
@@ -213,7 +239,7 @@ def test_statics_and_packing_match_jax(name):
 def test_statics_follow_in_place_edit():
     """An in-place edit of the coefficient table must reach the statics: the
     memo keys on the tensor's version counter, not on its identity alone."""
-    scene = ttt.load_from_file(scene_path("dingdong"))
+    scene = ttt.load_from_file(scene_path("dingdong"), device="cpu")
     coefs = scene.coefs
     perm, n_cubic, posdef = kb._statics_for(coefs)
     assert n_cubic == 1 and perm == (0, 1, 2)

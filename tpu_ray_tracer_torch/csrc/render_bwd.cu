@@ -21,26 +21,59 @@
 // its fields live into Phase B. Here Phase A keeps 13 floats per stage (ray
 // origin and direction, pre-clamp lit, cumulative ratio, chain colour) in a
 // per-thread array of MAX_STAGES entries; grad F, the normal and the
-// monomial powers are recomputed from (o, d, t, slot) in the reverse sweep.
+// monomial powers are recomputed from (o, d, t, slot) in the reverse sweep
+// (without a chain, stage 0's are kept from Phase A).
 // A stage past the array is rebuilt by stepping forward from the last stored
 // one, so every bounce count the JAX package accepts runs.
 //
 // The reduction. CUDA blocks run concurrently, where the TPU grid revisits
-// one accumulator in order. Each row value is summed over its warp as it is
-// produced (a fixed xor butterfly), and lane 0 adds it to that warp's own
-// copy of the rows; object rows are reduced once per distinct hit slot in
-// the warp. At the end each block sums its warps in order into a per-block
-// column of a [rows, blocks] partial table, and a second kernel sums each
-// row over the blocks in a fixed tree. No atomics: a call repeated on the
-// same inputs gives the same bits. The warp copies live in shared memory
-// when they fit and in a global scratch region otherwise. The grid strides
-// over the pixels with at most MAX_BLOCKS blocks, so the partial table and
-// the scratch stay small at any image size.
+// one accumulator in order, and no float atomics are used: a call repeated
+// on the same inputs gives the same bits. Each thread sums the row values
+// of every pixel it visits into a place of its own, in visiting order:
+// - the 17 camera rows in registers;
+// - the light rows, and with the "columns" placement also the object rows
+//   (coefs, colours, refl) of whatever slot its pixel hit, in its own column
+//   of a [rows, BLOCK] table in shared memory (thread t owns column t, so a
+//   warp's 32 lanes touch 32 banks whatever rows they add to).
+// Rows that have no column (the "warp" and "light_columns" placements, for
+// scenes whose rows do not fit) are summed over the warp as they are
+// produced (a fixed xor butterfly), object rows once per distinct slot in
+// the warp, into that warp's own copy of the rows (shared memory, or global
+// scratch when the copies do not fit). The camera registers are summed over
+// the warp once, at the end. Then each block sums, per row, its warp copies
+// in order and its columns in a fixed rotated order (conflict-free) into a
+// per-block column of a [rows, blocks] partial table, and a second kernel
+// sums each row over the blocks in a fixed tree. The launcher picks the
+// first placement of (columns, light_columns, warp) that fits with at least
+// 256 threads resident on an SM; the grid is one resident wave (occupancy x
+// SMs) striding over the pixels.
 //
-// What bounds it on this card: per-thread ALU work (the lights loop and the
-// 20-monomial grad, Hessian and monomial tables, once in each phase), and
-// the warp reductions, about 6 per light and 24 per distinct slot for every
-// stage. Nothing is tuned yet.
+// What bounds it on this card: on dingdong, its bytes. It reads 12 B of
+// cotangent and 12 B of aux per pixel and stage (22 MB at 1280x720: 6.6 us
+// at 3.35 TB/s) and writes 18 + 24N + 7L floats. Its arithmetic, counted
+// along the path the aux records (render/bounds.py `bwd_work`: a stage that
+// hit pays its geometry and, per lit light, the light's terms and their
+// reverse, then the normal and root backward; a light the aux marks
+// occluded pays nothing, one facing away its sign test; a miss only its
+// background rows), is 407 f32 operations a pixel on dingdong (FMA = 2),
+// 0.4e9 in all, 5.6 us at 67 TFLOP/s; 249 on 20spheres, where 84% of the
+// pixels miss. Measured on an H100 (700 W, chip_smoke.py and kernel_ab.py,
+// PERF.md): 0.067 ms on dingdong, 10% of the 6.6 us; the first design took
+// 0.126 ms. It summed every row value over its warp as it was produced
+// (~60 butterflies of 5 shuffles a pixel, at a quarter of the f32 rate),
+// ran 1024 blocks as 2.6 waves, and rebuilt stage 0's geometry in the
+// reverse sweep. The per-thread rows above, one resident wave, the geometry
+// kept from the forward sweep when there is no chain, and 64-thread blocks
+// with at least 8 resident (the sweep's best) are what this design does
+// about it. What stops it short of half its bound (kernel_ab.py,
+// kernel_bench.py; no per-instruction profiler on the card): it does a
+// hit's work on every lane (a miss gathers a zero row), and its
+// instructions are mostly not f32 arithmetic: of the `columns` kernel's
+// 3144 SASS instructions (a static count) 26% are f32 arithmetic, 34%
+// integer and address arithmetic (the row and column indices), 16% loads
+// and stores (the shared-memory read-modify-write of every row value) and
+// 5% shuffles; at 128 registers 16 of 64 warps are resident to hide the
+// shared-memory latency (fewer registers spilled and ran slower).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -51,13 +84,19 @@
 namespace {
 
 constexpr float GRAZING_CLAMP = 1e-6f;  // Pallas `_GRAZING_CLAMP` (:1514)
-constexpr int BLOCK = 128;
+// 64-thread blocks, at least 8 resident for the one-stage kernels (at most
+// 128 registers, no spills): the fastest point of the sweep of kernel_ab.py
+// on dingdong and 20spheres (PERF.md). The chain kernels (184 and 164
+// registers) would spill under a cap.
+constexpr int BLOCK = 64;
+constexpr int MIN_BLOCKS = 8;
+constexpr int MIN_BLOCKS_CHAIN = 1;
 constexpr int WARPS = BLOCK / 32;
-constexpr int MAX_BLOCKS = 1024;
 constexpr int MAX_STAGES = 8;
 constexpr int REDUCE_THREADS = 256;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr size_t SMEM_LIMIT = 200 * 1024;
+constexpr int MIN_RESIDENT = 256 / BLOCK;  // blocks (256 threads) a column placement keeps
 
 // Sum of v over the warp, the same bits in every lane (each butterfly step
 // adds a and b in both orders, and IEEE addition commutes).
@@ -73,6 +112,19 @@ __device__ __forceinline__ void reduce_row(float* acc, int row, float v) {
   v = warp_sum(v);
   if ((threadIdx.x & 31) == 0) acc[row] += v;
 }
+
+// Where a thread's row values go: its own column for rows [lo, hi), the
+// warp reduction for the others. `col` points at the thread's column.
+struct Sink {
+  float* acc;  // this warp's copy of the rows
+  float* col;  // this thread's column: row r at col[(r - lo) * BLOCK]
+  int lo, hi;
+  // every lane of the warp must call it with the same row
+  __device__ __forceinline__ void add(int row, float v) const {
+    if (row >= lo && row < hi) col[(row - lo) * BLOCK] += v;
+    else reduce_row(acc, row, v);
+  }
+};
 
 struct Rows {
   int cam, coefs, colors, lights, refl, total;
@@ -183,7 +235,7 @@ __device__ __forceinline__ int gather_row(const Tables& T, int slot) {
 
 // Stage s's record from its ray and the previous stage's chain values
 // (Phase A :1716-1771): the pre-clamp lit sum, then the ratio and colour.
-__device__ void make_stage(const Tables& T, const float o[3], const float d[3], const Aux& a,
+__device__ __forceinline__ void make_stage(const Tables& T, const float o[3], const float d[3], const Aux& a,
                            int s, float ratio_prev, const float c_prev[3], bool prev_hit,
                            float prev_rfl, const float bg[3], Stage& out, Geo& G) {
   const int row = gather_row(T, a.slot);
@@ -248,12 +300,13 @@ struct PixelCtx {
 };
 
 // Stage s's record: stored by Phase A, or rebuilt from the last stored one.
-__device__ Stage get_stage(const Tables& T, const Stage* rec, int s, const PixelCtx& px,
-                           const float bg[3]) {
-  if (s < MAX_STAGES) return rec[s];
-  Stage cur = rec[MAX_STAGES - 1];
-  Aux a = px.aux(MAX_STAGES - 1);
-  for (int k = MAX_STAGES - 1; k < s; ++k) {
+template <int NREC>
+__device__ __forceinline__ Stage get_stage(const Tables& T, const Stage* rec, int s,
+                                           const PixelCtx& px, const float bg[3]) {
+  if (s < NREC) return rec[s];
+  Stage cur = rec[NREC - 1];
+  Aux a = px.aux(NREC - 1);
+  for (int k = NREC - 1; k < s; ++k) {
     const Aux a_next = px.aux(k + 1);
     Stage nxt;
     step_stage(T, cur, k, a, a_next, bg, nxt);
@@ -264,12 +317,15 @@ __device__ Stage get_stage(const Tables& T, const Stage* rec, int s, const Pixel
 }
 
 // Close one stage (Pallas `shade_bwd` :1775 and `stage_bwd` :1834): the
-// light rows are reduced here, the per-object rows by slot; returns the
-// cotangents (do, dd) of the stage's ray.
-__device__ void stage_bwd(const Tables& T, const Rows& R, float* acc, const Geo& G,
-                          const float d[3], const Aux& a, const float dlit[3],
-                          const float dn_in[3], const float dp_in[3], float drefl_val,
-                          bool with_refl, float do_out[3], float dd_out[3]) {
+// light rows and the per-object rows go to the sink (OBJ_COLS: the object
+// rows to the thread's column, else one warp reduction per distinct slot);
+// returns the cotangents (do, dd) of the stage's ray.
+template <bool OBJ_COLS>
+__device__ __forceinline__ void stage_bwd(const Tables& T, const Rows& R, const Sink& sink,
+                                          const Geo& G, const float d[3], const Aux& a,
+                                          const float dlit[3], const float dn_in[3],
+                                          const float dp_in[3], float drefl_val,
+                                          bool with_refl, float do_out[3], float dd_out[3]) {
   const int row = gather_row(T, a.slot);
   const float* sel = T.coefs + N_COEFS * row;
   const float* objc = T.colors + 3 * row;
@@ -292,10 +348,10 @@ __device__ void stage_bwd(const Tables& T, const Rows& R, float* acc, const Geo&
       const float dcol_c = u_lam * objc[c] * INV_PI * L.lam;
       dlam = dlam + u_lam * objc[c] * INV_PI * L.colr[c];
       if (L.sph) {
-        reduce_row(acc, lrow + 4 + c, dcol_c / (FOUR_PI * L.dist2));
+        sink.add(lrow + 4 + c, dcol_c / (FOUR_PI * L.dist2));
         ddist2 = ddist2 - dcol_c * L.colr[c] / L.dist2;
       } else {
-        reduce_row(acc, lrow + 4 + c, dcol_c);
+        sink.add(lrow + 4 + c, dcol_c);
       }
     }
     const float dndotl = dlam * (L.ndotl > 0.f ? 1.f : 0.f);
@@ -307,7 +363,7 @@ __device__ void stage_bwd(const Tables& T, const Rows& R, float* acc, const Geo&
     }
     if (!L.sph) {  // directional: ld is the stored direction
 #pragma unroll
-      for (int k = 0; k < 3; ++k) reduce_row(acc, lrow + 1 + k, dld[k]);
+      for (int k = 0; k < 3; ++k) sink.add(lrow + 1 + k, dld[k]);
       continue;
     }
     // ld = to / |to|, dist2 = |to|^2
@@ -315,7 +371,7 @@ __device__ void stage_bwd(const Tables& T, const Rows& R, float* acc, const Geo&
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
       const float dto_k = (dld[k] - L.ld[k] * udot) * L.inv_dn + 2.f * L.to[k] * ddist2;
-      reduce_row(acc, lrow + 1 + k, dto_k);
+      sink.add(lrow + 1 + k, dto_k);
       dpoint[k] = dpoint[k] - dto_k;
     }
   }
@@ -397,7 +453,20 @@ __device__ void stage_bwd(const Tables& T, const Rows& R, float* acc, const Geo&
     dd_out[k] = dd_out[k] + sc * a.t * G.gF[k];
   }
 
-  // --- per-object rows, one warp reduction per distinct slot ---
+  // --- per-object rows of the hit slot ---
+  if (OBJ_COLS) {  // the thread's own column holds every object row
+    if (a.slot >= 0) {
+      float* c_coefs = sink.col + (size_t)(R.coefs + N_COEFS * a.slot - sink.lo) * BLOCK;
+#pragma unroll
+      for (int m = 0; m < N_COEFS; ++m) c_coefs[m * BLOCK] += dsel[m];
+      float* c_colors = sink.col + (size_t)(R.colors + 3 * a.slot - sink.lo) * BLOCK;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) c_colors[c * BLOCK] += dobjc[c];
+      if (with_refl) sink.col[(size_t)(R.refl + a.slot - sink.lo) * BLOCK] += drefl_val;
+    }
+    return;
+  }
+  // one warp reduction per distinct slot
   unsigned todo = __ballot_sync(FULL, a.slot >= 0);
   while (todo) {
     const int leader = __ffs(todo) - 1;
@@ -406,22 +475,28 @@ __device__ void stage_bwd(const Tables& T, const Rows& R, float* acc, const Geo&
     todo &= ~__ballot_sync(FULL, mine);
 #pragma unroll
     for (int m = 0; m < N_COEFS; ++m)
-      reduce_row(acc, R.coefs + N_COEFS * slot + m, mine ? dsel[m] : 0.f);
+      reduce_row(sink.acc, R.coefs + N_COEFS * slot + m, mine ? dsel[m] : 0.f);
 #pragma unroll
-    for (int c = 0; c < 3; ++c) reduce_row(acc, R.colors + 3 * slot + c, mine ? dobjc[c] : 0.f);
-    if (with_refl) reduce_row(acc, R.refl + slot, mine ? drefl_val : 0.f);
+    for (int c = 0; c < 3; ++c)
+      reduce_row(sink.acc, R.colors + 3 * slot + c, mine ? dobjc[c] : 0.f);
+    if (with_refl) reduce_row(sink.acc, R.refl + slot, mine ? drefl_val : 0.f);
   }
 }
 
-__global__ void __launch_bounds__(BLOCK)
+// OBJ_COLS: the object rows live in the threads' columns ("columns"
+// placement); CHAIN = false: bounces is 0, one stage, no per-stage array.
+template <bool OBJ_COLS, bool CHAIN>
+__global__ void __launch_bounds__(BLOCK, CHAIN ? MIN_BLOCKS_CHAIN : MIN_BLOCKS)
 render_bwd_kernel(const float* __restrict__ g_coefs, const float* __restrict__ g_colors,
                   const float* __restrict__ g_refl, const float* __restrict__ g_lights,
                   const float* __restrict__ g_cam, const float* __restrict__ grad,
                   const float* __restrict__ aux_t, const int* __restrict__ aux_slot,
                   const int* __restrict__ aux_occ, float* __restrict__ partial,
                   float* __restrict__ g_acc, int width, int height, int rows, int n_obj,
-                  int n_lights, int bounces) {
+                  int n_lights, int bounces, int col_lo, int col_hi) {
+  constexpr int NREC = CHAIN ? MAX_STAGES : 1;
   const Rows R = acc_layout(n_obj, n_lights);
+  if (!CHAIN) bounces = 0;
   const int n_stages = bounces + 1;
 
   // --- stage the tables (with a zero row for slot -1) into shared memory ---
@@ -432,8 +507,9 @@ render_bwd_kernel(const float* __restrict__ g_coefs, const float* __restrict__ g
   float* s_lights = s_refl + (n_obj + 1);
   float* s_cam = s_lights + n_lights * 7;
   // each warp's copy of the rows: shared memory, or this block's slice of
-  // the global scratch when the rows do not fit
+  // the global scratch when the rows do not fit; then the threads' columns
   float* s_acc = g_acc ? g_acc + (size_t)blockIdx.x * WARPS * R.total : s_cam + 18;
+  float* s_cols = (g_acc ? s_cam + 18 : s_acc + WARPS * R.total);
   const int tid = threadIdx.x;
   // empty tables may come with a null pointer: the loop bounds keep them unread
   for (int k = tid; k < (n_obj + 1) * N_COEFS; k += BLOCK)
@@ -444,13 +520,18 @@ render_bwd_kernel(const float* __restrict__ g_coefs, const float* __restrict__ g
   for (int k = tid; k < n_lights * 7; k += BLOCK) s_lights[k] = g_lights[k];
   for (int k = tid; k < 18; k += BLOCK) s_cam[k] = g_cam[k];
   for (int k = tid; k < WARPS * R.total; k += BLOCK) s_acc[k] = 0.f;
+  for (int k = tid; k < (col_hi - col_lo) * BLOCK; k += BLOCK) s_cols[k] = 0.f;
   __syncthreads();
 
   const Tables T{s_coefs, s_colors, s_refl, s_lights, s_cam, n_obj, n_lights};
-  float* acc = s_acc + (size_t)(tid >> 5) * R.total;
+  const Sink sink{s_acc + (size_t)(tid >> 5) * R.total, s_cols + tid, col_lo, col_hi};
   const float bg[3] = {s_cam[14], s_cam[15], s_cam[16]};
   const size_t n_px = (size_t)rows * width;
   const float eye[3] = {s_cam[9], s_cam[10], s_cam[11]};
+  const bool with_refl = CHAIN && bounces > 0;
+  float cam_acc[17];  // the camera rows of every pixel this thread visits
+#pragma unroll
+  for (int k = 0; k < 17; ++k) cam_acc[k] = 0.f;
 
   // the loop bounds are the same for the whole block, so every warp takes
   // every reduction with all its lanes
@@ -458,6 +539,19 @@ render_bwd_kernel(const float* __restrict__ g_coefs, const float* __restrict__ g
     const size_t pix = base + tid;
     const bool valid = pix < n_px;
     const PixelCtx px{aux_t, aux_slot, aux_occ, n_px, pix, valid};
+    float g[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) g[c] = valid ? grad[3 * pix + c] : 0.f;
+    // A warp whose lanes all miss at stage 0 adds only the background rows:
+    // such a pixel's colour is the background, it enters no later stage,
+    // and every other row value it has is 0 (its gathered rows are 0; a
+    // spherical light at the eye itself, whose falloff is infinite there,
+    // would make them NaN on the full path).
+    if (__all_sync(FULL, px.aux(0).slot < 0)) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) cam_acc[14 + c] = cam_acc[14 + c] + g[c];
+      continue;
+    }
 
     // --- regenerate the primary ray (identical math to the forward) ---
     const int y_local = (int)(pix / width);
@@ -474,21 +568,15 @@ render_bwd_kernel(const float* __restrict__ g_coefs, const float* __restrict__ g
     const float tz = cx * s_cam[2] + cy * s_cam[5] + s_cam[8];
     const float inv_len = rsqrtf(tx * tx + ty * ty + tz * tz);
     const float d0[3] = {tx * inv_len, ty * inv_len, tz * inv_len};
-    float g[3];
-#pragma unroll
-    for (int c = 0; c < 3; ++c) g[c] = valid ? grad[3 * pix + c] : 0.f;
-    float cam_acc[17];
-#pragma unroll
-    for (int k = 0; k < 17; ++k) cam_acc[k] = 0.f;
 
     // === Phase A: rebuild the chain forward (no root solves) ===
-    Stage rec[MAX_STAGES];
+    Stage rec[NREC];
+    Geo G0;  // stage 0's geometry: Phase B reuses it when there is no chain
     {
-      Geo G;
       const float zero3[3] = {0.f, 0.f, 0.f};
       Aux a = px.aux(0);
-      make_stage(T, eye, d0, a, 0, 1.f, zero3, false, 0.f, bg, rec[0], G);
-      const int stored = n_stages < MAX_STAGES ? n_stages : MAX_STAGES;
+      make_stage(T, eye, d0, a, 0, 1.f, zero3, false, 0.f, bg, rec[0], G0);
+      const int stored = n_stages < NREC ? n_stages : NREC;
       for (int s = 1; s < stored; ++s) {
         const Aux a_next = px.aux(s);
         step_stage(T, rec[s - 1], s - 1, a, a_next, bg, rec[s]);
@@ -498,9 +586,9 @@ render_bwd_kernel(const float* __restrict__ g_coefs, const float* __restrict__ g
 
     // === Phase B: reverse sweep, last stage first ===
     float dc[3], dratio = 0.f, drefl_cur = 0.f;
-    Stage cur = get_stage(T, rec, n_stages - 1, px, bg);
+    Stage cur = get_stage<NREC>(T, rec, n_stages - 1, px, bg);
     Aux a = px.aux(n_stages - 1);
-    if (bounces > 0) {  // the at-cap blend
+    if (with_refl) {  // the at-cap blend
       const float rfl_b = T.refl[gather_row(T, a.slot)];
       const bool ent_b = a.slot >= 0 && rfl_b > EPS;
       const float entf = ent_b ? 1.f : 0.f;
@@ -527,7 +615,7 @@ render_bwd_kernel(const float* __restrict__ g_coefs, const float* __restrict__ g
       if (s > 0) {
         // c_s = enter ? (1 - r_s) c_{s-1} + r_s bcol_s : c_{s-1}
         // r_s = enter ? r_{s-1} rfl_{s-1} : r_{s-1}
-        prev = get_stage(T, rec, s - 1, px, bg);
+        prev = get_stage<NREC>(T, rec, s - 1, px, bg);
         a_prev = px.aux(s - 1);
         const float prev_rfl = T.refl[gather_row(T, a_prev.slot)];
         const bool enter_b = a_prev.slot >= 0 && prev_rfl > EPS;
@@ -560,7 +648,8 @@ render_bwd_kernel(const float* __restrict__ g_coefs, const float* __restrict__ g
       }
 
       Geo G;
-      geometry(T.coefs + N_COEFS * gather_row(T, a.slot), cur.o, cur.d, a.t, G);
+      if (CHAIN) geometry(T.coefs + N_COEFS * gather_row(T, a.slot), cur.o, cur.d, a.t, G);
+      else G = G0;
       // cotangents from stage s+1's ray: o' = p + bias n, d' = d - 2 (d.n) n
       float dp_in[3], dn_in[3], dd_in[3] = {0.f, 0.f, 0.f};
 #pragma unroll
@@ -578,7 +667,8 @@ render_bwd_kernel(const float* __restrict__ g_coefs, const float* __restrict__ g
         }
       }
       float do_s[3], dd_s[3];
-      stage_bwd(T, R, acc, G, cur.d, a, dlit, dn_in, dp_in, drefl_cur, bounces > 0, do_s, dd_s);
+      stage_bwd<OBJ_COLS>(T, R, sink, G, cur.d, a, dlit, dn_in, dp_in, drefl_cur, with_refl,
+                          do_s, dd_s);
 #pragma unroll
       for (int k = 0; k < 3; ++k) {
         do_nxt[k] = do_s[k];
@@ -606,17 +696,22 @@ render_bwd_kernel(const float* __restrict__ g_coefs, const float* __restrict__ g
     const float dcy = dtg[0] * s_cam[3] + dtg[1] * s_cam[4] + dtg[2] * s_cam[5];
     cam_acc[12] = cam_acc[12] + gxf * dcx;
     cam_acc[13] = cam_acc[13] + gyf * dcy;
-#pragma unroll
-    for (int k = 0; k < 17; ++k) reduce_row(acc, R.cam + k, cam_acc[k]);
   }
-
-  // --- the block's column of the partial table: its warps in order ---
-  __syncthreads();
-  const float* acc0 = s_acc;
-  for (int r = tid; r < R.total; r += BLOCK) {
-    float v = acc0[r];
 #pragma unroll
-    for (int w = 1; w < WARPS; ++w) v += acc0[(size_t)w * R.total + r];
+  for (int k = 0; k < 17; ++k) reduce_row(sink.acc, R.cam + k, cam_acc[k]);
+
+  // --- the block's column of the partial table: its warps in order, then
+  // its threads' columns, row r starting at column r mod BLOCK (so the 32
+  // rows a warp sums at once sit in 32 banks) ---
+  __syncthreads();
+  for (int r = tid; r < R.total; r += BLOCK) {
+    float v = s_acc[r];
+#pragma unroll
+    for (int w = 1; w < WARPS; ++w) v += s_acc[(size_t)w * R.total + r];
+    if (r >= col_lo && r < col_hi) {
+      const float* row = s_cols + (size_t)(r - col_lo) * BLOCK;
+      for (int j = 0; j < BLOCK; ++j) v += row[(j + r) & (BLOCK - 1)];
+    }
     partial[(size_t)r * gridDim.x + blockIdx.x] = v;
   }
 }
@@ -639,61 +734,115 @@ reduce_rows_kernel(const float* __restrict__ partial, int n_cols, float* __restr
   if (threadIdx.x == 0) out[blockIdx.x] = buf[0];
 }
 
-struct Launch {
-  int blocks;
-  size_t table_floats, acc_floats;  // shared memory: tables, warp row copies
+static_assert((BLOCK & (BLOCK - 1)) == 0 && BLOCK % 32 == 0, "BLOCK: a power of 2 warps");
+
+// Placements of the rows (`trt_render_bwd`'s `placement`): every non-camera
+// row in the threads' columns, the light rows only, or none. The plan takes
+// the first of PLACEMENT_ORDER that fits: columns do no warp reduction per
+// row value, light columns none for the light rows.
+enum Placement { WARP = 0, LIGHT_COLUMNS = 1, COLUMNS = 2 };
+constexpr int PLACEMENT_ORDER[] = {COLUMNS, LIGHT_COLUMNS, WARP};
+
+using KernelFn = void (*)(const float*, const float*, const float*, const float*, const float*,
+                          const float*, const float*, const int*, const int*, float*, float*, int,
+                          int, int, int, int, int, int, int);
+
+KernelFn kernel_for(int placement, bool chain) {
+  if (placement == COLUMNS)
+    return chain ? render_bwd_kernel<true, true> : render_bwd_kernel<true, false>;
+  return chain ? render_bwd_kernel<false, true> : render_bwd_kernel<false, false>;
+}
+
+// Where a placement puts the rows: the column rows [col_lo, col_hi), the
+// dynamic shared memory, and whether the warp copies live in global scratch
+// (when they do not fit beside the tables).
+struct Layout {
+  int col_lo, col_hi;
+  size_t smem_bytes;
   bool global_acc;
 };
 
-Launch plan(int width, int rows, int n_obj, int n_lights) {
+Layout layout(int n_obj, int n_lights, int placement) {
   const Rows R = acc_layout(n_obj, n_lights);
-  const long long n_px = (long long)width * rows;
-  Launch L;
-  const long long need = (n_px + BLOCK - 1) / BLOCK;
-  L.blocks = (int)(need < MAX_BLOCKS ? (need > 0 ? need : 1) : MAX_BLOCKS);
-  L.table_floats = (size_t)(n_obj + 1) * (N_COEFS + 3 + 1) + (size_t)n_lights * 7 + 18;
-  L.acc_floats = (size_t)WARPS * R.total;
-  L.global_acc = sizeof(float) * (L.table_floats + L.acc_floats) > SMEM_LIMIT;
-  return L;
+  const size_t table = (size_t)(n_obj + 1) * (N_COEFS + 3 + 1) + (size_t)n_lights * 7 + 18;
+  const size_t warp_rows = (size_t)WARPS * R.total;
+  const bool global_acc = sizeof(float) * (table + warp_rows) > SMEM_LIMIT;
+  const int lo = placement == COLUMNS ? R.coefs : placement == LIGHT_COLUMNS ? R.lights : 0;
+  const int hi = placement == COLUMNS ? R.total : placement == LIGHT_COLUMNS ? R.refl : 0;
+  return Layout{lo, hi,
+                sizeof(float) * (table + (global_acc ? 0 : warp_rows) + (size_t)(hi - lo) * BLOCK),
+                global_acc};
+}
+
+// Shared memory past the default 48 KB must be asked for, per kernel.
+cudaError_t allow_smem(KernelFn kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 }  // namespace
 
-// Floats of device scratch that trt_render_bwd needs: the [rows, blocks]
-// partial table, and the warp row copies when they do not fit in shared
-// memory.
-extern "C" long long trt_render_bwd_scratch(int width, int rows, int n_obj, int n_lights) {
-  const Launch L = plan(width, rows, n_obj, n_lights);
-  const Rows R = acc_layout(n_obj, n_lights);
-  return (long long)R.total * L.blocks + (L.global_acc ? (long long)L.blocks * L.acc_floats : 0);
+// The launch for a frame: out[0] the placement, the first of
+// PLACEMENT_ORDER that fits in shared memory with at least 256 resident
+// threads on an SM (the warp placement with at least one block); out[1]
+// the blocks, one resident wave (occupancy x SMs) or fewer where the image
+// is small; out[2] the floats of device scratch (the [rows, blocks] partial
+// table, and the warp row copies when they do not fit in shared memory).
+// Returns a CUDA error; cudaErrorInvalidConfiguration when nothing fits.
+extern "C" int trt_render_bwd_plan(int width, int rows, int n_obj, int n_lights, int bounces,
+                                   long long* out) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  for (const int p : PLACEMENT_ORDER) {
+    const Layout L = layout(n_obj, n_lights, p);
+    if (L.smem_bytes > SMEM_LIMIT) continue;
+    const KernelFn kernel = kernel_for(p, bounces > 0);
+    int occ = 0;
+    if ((err = allow_smem(kernel, L.smem_bytes)) != cudaSuccess) return (int)err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, BLOCK, L.smem_bytes);
+    if (err != cudaSuccess) return (int)err;
+    if (occ < 1 || (p != WARP && occ < MIN_RESIDENT)) continue;
+    const long long need = ((long long)width * rows + BLOCK - 1) / BLOCK;
+    const long long blocks = need < (long long)occ * sms ? (need > 0 ? need : 1)
+                                                         : (long long)occ * sms;
+    const Rows R = acc_layout(n_obj, n_lights);
+    out[0] = p;
+    out[1] = blocks;
+    out[2] = R.total * blocks + (L.global_acc ? blocks * WARPS * R.total : 0);
+    return 0;
+  }
+  return (int)cudaErrorInvalidConfiguration;
 }
 
+// Launch the kernel and the row reduction with the plan's placement and
+// blocks (trt_render_bwd_plan's out[0] and out[1]; scratch holds out[2]
+// floats).
 extern "C" int trt_render_bwd(const void* coefs, const void* colors, const void* refl,
                               const void* lights, const void* cam, const void* grad,
                               const void* aux_t, const void* aux_slot, const void* aux_occ,
                               void* scratch, void* out, int width, int height, int rows,
-                              int n_obj, int n_lights, int bounces, void* stream) {
-  const Launch L = plan(width, rows, n_obj, n_lights);
+                              int n_obj, int n_lights, int bounces, int placement, int blocks,
+                              void* stream) {
+  const Layout L = layout(n_obj, n_lights, placement);
+  const KernelFn kernel = kernel_for(placement, bounces > 0);
+  cudaError_t err = allow_smem(kernel, L.smem_bytes);
+  if (err != cudaSuccess) return (int)err;
   const Rows R = acc_layout(n_obj, n_lights);
-  const size_t smem = sizeof(float) * (L.table_floats + (L.global_acc ? 0 : L.acc_floats));
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        render_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
   float* partial = static_cast<float*>(scratch);
-  float* g_acc = L.global_acc ? partial + (size_t)R.total * L.blocks : nullptr;
+  float* g_acc = L.global_acc ? partial + (size_t)R.total * blocks : nullptr;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  render_bwd_kernel<<<L.blocks, BLOCK, smem, st>>>(
+  kernel<<<blocks, BLOCK, L.smem_bytes, st>>>(
       static_cast<const float*>(coefs), static_cast<const float*>(colors),
       static_cast<const float*>(refl), static_cast<const float*>(lights),
       static_cast<const float*>(cam), static_cast<const float*>(grad),
       static_cast<const float*>(aux_t), static_cast<const int*>(aux_slot),
       static_cast<const int*>(aux_occ), partial, g_acc, width, height, rows, n_obj, n_lights,
-      bounces);
-  cudaError_t err = cudaGetLastError();
+      bounces, L.col_lo, L.col_hi);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  reduce_rows_kernel<<<R.total, REDUCE_THREADS, 0, st>>>(partial, L.blocks,
+  reduce_rows_kernel<<<R.total, REDUCE_THREADS, 0, st>>>(partial, blocks,
                                                          static_cast<float*>(out));
   return (int)cudaGetLastError();
 }

@@ -21,14 +21,55 @@
 // the chain starts. The image arithmetic is the same with and without aux:
 // the aux stores sit behind a runtime pointer test.
 //
-// What bounds it on this card: per-thread ALU work and register pressure
-// from the unrolled 20-monomial polynomials (ray expansion, Newton steps,
-// the per-object shadow precompute), not bytes. The scene tables are a few
-// KB, staged once per block into shared memory; the only device-memory
-// traffic is the framebuffer write. What the simple design does about it:
-// nothing yet. Scene statics (object and light counts, the cubic/quadric
-// split, per-slot posdef, per-light kind, iteration counts, bounces) are
-// runtime arguments, so one build serves every scene.
+// What bounds it on this card: f32 operations. The only device-memory
+// traffic is the framebuffer (12 B a pixel, 11 MB at 1280x720: 3.3 us at
+// 3.35 TB/s); the scene tables are a few KB staged once per block into
+// shared memory. The work is the root solves (per cubic slot the ray
+// expansion, the seeds with their powf and cosf, 5 screens of 3 Newton
+// steps, the 3-step polish on the 20-monomial F), the per-object F, grad F
+// and Hessian at the shadow origin, and the shadow tests. Counted along the
+// path each pixel takes (render/bounds.py `fwd_work`, with the branch
+// shares of the kernel's own aux: the stage's hit, each light lit, occluded
+// or facing away): dingdong 1280x720 needs 2378 f32 operations a pixel (FMA
+// = 2, the math functions at their SASS counts), 2.2e9 in all, 0.033 ms at
+// 67 TFLOP/s; 20spheres 2536 a pixel. Measured on an H100 (700 W,
+// chip_smoke.py and kernel_ab.py, PERF.md): 0.128 ms on dingdong, 26% of
+// that bound (the first design: 0.161 ms); 20spheres 0.174 ms (0.193), 10%.
+//
+// What the design does about it:
+// - the main path's iteration counts (polish 3, screen 3, shadow 1) and the
+//   presence of a reflection chain are template parameters, so every Newton,
+//   screen and candidate loop unrolls; a generic instantiation of the same
+//   source takes runtime counts for any other setting (`trt_render_fwd`'s
+//   `variant`, chosen by the wrapper): the generic one takes 12% longer on
+//   dingdong;
+// - the object loops run over a cubic range and a quadric range with each
+//   solver inlined: no call frames, no runtime test of the slot's kind, no
+//   local arrays (the first design spilled 108 bytes at 96 registers; the
+//   main instantiation takes 72 registers and spills nothing);
+// - each object's coefficients are read from shared memory into registers
+//   once per object, not at every use;
+// - stage 0 forms each slot's t-polynomial from eye-hoisted coefficients
+//   (`eye_coeffs`, once per block): 47 operations a pixel for the cubic
+//   slot where the binomial expansion takes 290;
+// - the reflection chain is one loop over stages around a single inlined
+//   trace-and-shade, so the chain does not double the code;
+// - the occlusion loops read only a light's shadow-ray direction; its
+//   Lambert factor and falloff are computed in the pending test and in the
+//   final sum only;
+// - 16x8 blocks with at least 6 resident per SM, the fastest point of the
+//   block-shape sweep.
+// What stops it short of half its bound (measured by kernel_ab.py and
+// kernel_bench.py; there is no per-instruction profiler on the card): its
+// instruction mix. Of the main instantiation's 5717 SASS instructions (a
+// static count) 46% are f32 arithmetic (at 1.56 counted operations each,
+// against the 2 of an FFMA), the rest integer and address arithmetic (25%),
+// control (12%), compares and selects (10%) and loads (5%). Executed in
+// that mix, one instruction per scheduler and cycle reaches 36% of the
+// bound; it runs at 72% of that.
+// Divergence costs little on dingdong: a warp reaches the root solves, the
+// polish, the shading and the shadow tests with 31.3 to 32 of its 32 lanes
+// active (20spheres: 23.5 in its shadow tests, 25.7 in the shading).
 //
 // The TPU kernel's tile-uniform skips become per-thread exits: a miss skips
 // shading, a light that does not face the point (lambert factor 0) skips its
@@ -53,8 +94,28 @@ constexpr float TTP1 = (float)TWO_THIRD_PI_D;
 constexpr float TTP2 = (float)(2.0 * TWO_THIRD_PI_D);
 constexpr float PI_F = (float)PI_D;
 constexpr float ONE_THIRD = (float)(1.0 / 3.0);
-constexpr int BLOCK_X = 8;  // the reference's 8x8 pixel blocks
+// 16x8 blocks (warps of 16x2 pixels) with at least 6 resident per SM (at
+// most 80 registers): the fastest point of the block-shape sweep of
+// kernel_ab.py on both dingdong and 20spheres (PERF.md)
+constexpr int BLOCK_X = 16;
 constexpr int BLOCK_Y = 8;
+constexpr int MIN_BLOCKS = 6;
+
+// Iteration counts: compile-time on the main path, runtime in the generic
+// instantiation. Both answer the same three questions.
+template <int POLISH, int SCREEN, int SHADOW>
+struct FixedIters {
+  __device__ __forceinline__ constexpr int polish() const { return POLISH; }
+  __device__ __forceinline__ constexpr int screen() const { return SCREEN; }
+  __device__ __forceinline__ constexpr int shadow() const { return SHADOW; }
+};
+struct RuntimeIters {
+  int polish_, screen_, shadow_;
+  __device__ __forceinline__ int polish() const { return polish_; }
+  __device__ __forceinline__ int screen() const { return screen_; }
+  __device__ __forceinline__ int shadow() const { return shadow_; }
+};
+using MainIters = FixedIters<3, 3, 1>;  // kernel_backend.py's defaults
 
 __host__ __device__ constexpr int binom3(int n, int k) {  // n <= 3
   return (k == 0 || k == n) ? 1 : (n == 3 ? 3 : 2);
@@ -72,6 +133,13 @@ __device__ __forceinline__ float acos_seed(float x) {
   const float p = 1.5707288f + ax * (-0.2121144f + ax * (0.0742610f + ax * (-0.0187293f)));
   const float pos = sqrtf(jmax(1.f - ax, 0.f)) * p;
   return x < 0.f ? PI_F - pos : pos;
+}
+
+// An object's coefficients [M_START, 20) from shared memory into registers.
+template <int M_START>
+__device__ __forceinline__ void load_coefs(const float* src, float c[N_COEFS]) {
+#pragma unroll
+  for (int m = 0; m < N_COEFS; ++m) c[m] = m < M_START ? 0.f : src[m];
 }
 
 // [Hxx, Hyy, Hzz, Hxy, Hxz, Hyz] of F at P (Pallas `_hessian_entries`, :208).
@@ -136,6 +204,46 @@ __device__ __forceinline__ void ray_coeffs(const float* c, const Pow3& O,
   }
 }
 
+// Stage 0's ray expansion with the eye hoisted: every primary ray leaves
+// the eye e, so F(e + t d) = sum_k t^k sum_{deg n = k} q[n] d^(p_n), where
+// q[n] = sum_{m : p_m >= p_n} c[m] w(p_m, p_n) e^(p_m - p_n) depends on the
+// object and the eye only (computed once per block, `eye_coeffs`); a pixel
+// then forms t_k from its direction's monomials. render_fwd_plain computes
+// stage 0 the same way (`_eye_coeffs`, `_eye_ray_coeffs`).
+__device__ __forceinline__ void eye_coeffs(const float* c, const Pow3& E, float q[N_COEFS]) {
+#pragma unroll
+  for (int n = 0; n < N_COEFS; ++n) {
+    const int jx = mpow(n, 0), jy = mpow(n, 1), jz = mpow(n, 2);
+    float acc = 0.f;
+#pragma unroll
+    for (int m = 0; m < N_COEFS; ++m) {
+      const int px = mpow(m, 0), py = mpow(m, 1), pz = mpow(m, 2);
+      if (jx > px || jy > py || jz > pz) continue;
+      float term = mono(E, px - jx, py - jy, pz - jz);
+      const int w = binom3(px, jx) * binom3(py, jy) * binom3(pz, jz);
+      if (w != 1) term = term * (float)w;
+      acc += c[m] * term;
+    }
+    q[n] = acc;
+  }
+}
+
+template <int M_START, int K_MAX>
+__device__ __forceinline__ void eye_ray_coeffs(const float* q, const Pow3& D,
+                                               float t[K_MAX + 1]) {
+#pragma unroll
+  for (int k = 0; k <= K_MAX; ++k) {
+    float acc = 0.f;
+#pragma unroll
+    for (int n = M_START; n < N_COEFS; ++n) {
+      const int jx = mpow(n, 0), jy = mpow(n, 1), jz = mpow(n, 2);
+      if (jx + jy + jz != k) continue;
+      acc += q[n] * mono(D, jx, jy, jz);
+    }
+    t[k] = acc;
+  }
+}
+
 __device__ __forceinline__ float newton_step(float t, float f, float df) {
   const float step = fabsf(df) > 1e-12f ? f / df : 0.f;
   const float tn = t - step;
@@ -145,10 +253,11 @@ __device__ __forceinline__ float newton_step(float t, float f, float df) {
 // Newton against the direct F, then (REJECT) the residual test
 // (Pallas `_polish`, :239).
 template <int M_START, bool REJECT>
-__device__ float polish(const float* c, float ox, float oy, float oz, float dx,
-                        float dy, float dz, float t, int iters) {
+__device__ __forceinline__ float polish(const float* c, float ox, float oy, float oz,
+                                        float dx, float dy, float dz, float t, int iters) {
   const float seed = t;
   float f, mag, g[3];
+#pragma unroll
   for (int it = 0; it < iters; ++it) {
     const Pow3 P = powers(ox + t * dx, oy + t * dy, oz + t * dz);
     eval_F<M_START, false, true>(c, P, f, mag, g);
@@ -170,6 +279,7 @@ struct Cubic {
     return fabsf(t3) * at * at * at + fabsf(t2) * at * at + fabsf(t1) * at + fabsf(t0) + 1e-30f;
   }
   __device__ __forceinline__ float newton(float t, int iters) const {
+#pragma unroll
     for (int i = 0; i < iters; ++i) t = newton_step(t, f(t), df(t));
     return t;
   }
@@ -184,7 +294,7 @@ struct Cubic {
   }
   // three scale-normalised Cardano/trig seeds; Delta > 0 puts the Cardano
   // root in the first slot (`_solve_object` :324-358, `cubic_occ_one` :815-842)
-  __device__ __forceinline__ void seeds(float out[3]) const {
+  __device__ __forceinline__ void seeds(float& r0, float& r1, float& r2) const {
     const float s3 = fabsf(t3) > EPS ? t3 : 1.f;
     float a = t2 / s3, b = t1 / s3, c = t0 / s3;
     const float s = jmax(jmax(fabsf(a), sqrtf(fabsf(b))), jmax(cbrt_seed(fabsf(c)), 1e-30f));
@@ -203,9 +313,9 @@ struct Cubic {
     const float a3 = a / 3.f;
     const float first = delta > 0.f ? cbrt_seed(r + sq_delta) + cbrt_seed(r - sq_delta)
                                     : two_sq * cosf(theta);
-    out[0] = s * (first - a3);
-    out[1] = s * (two_sq * cosf(theta + TTP1) - a3);
-    out[2] = s * (two_sq * cosf(theta + TTP2) - a3);
+    r0 = s * (first - a3);
+    r1 = s * (two_sq * cosf(theta + TTP1) - a3);
+    r2 = s * (two_sq * cosf(theta + TTP2) - a3);
   }
 };
 
@@ -223,12 +333,12 @@ __device__ __forceinline__ float stable_quad_roots(float t2, float t1, float t0,
   return disc;
 }
 
-// Root for a cubic slot (Pallas `_solve_object`, :263-405).
-__device__ float solve_object(const float* c, float ox, float oy, float oz,
-                              float dx, float dy, float dz, int polish_iters,
-                              int screen_iters) {
-  float tc[4];
-  ray_coeffs<0, 3>(c, powers(ox, oy, oz), powers(dx, dy, dz), tc);
+// Root for a cubic slot (Pallas `_solve_object`, :263-405), from the ray's
+// t-polynomial tc.
+template <class It>
+__device__ __forceinline__ float solve_cubic(const float* c, const float tc[4], float ox,
+                                             float oy, float oz, float dx, float dy, float dz,
+                                             It I) {
   const Cubic p{tc[3], tc[2], tc[1], tc[0]};
   const bool is_cubic = fabsf(p.t3) > EPS;
   const bool is_quad = fabsf(p.t2) > EPS;
@@ -237,39 +347,40 @@ __device__ float solve_object(const float* c, float ox, float oy, float oz,
   const float sq2 = is_quad ? p.t2 : 1.f;
   const float qdisc = p.t1 * p.t1 - 4.f * p.t2 * p.t0;
   const float qsq = sqrtf(jmax(qdisc, 0.f));
-  const float sub_lo = p.screen((-p.t1 - qsq) / (2.f * sq2), screen_iters);
-  const float sub_hi = p.screen((-p.t1 + qsq) / (2.f * sq2), screen_iters);
+  const float sub_lo = p.screen((-p.t1 - qsq) / (2.f * sq2), I.screen());
+  const float sub_hi = p.screen((-p.t1 + qsq) / (2.f * sq2), I.screen());
   if (is_cubic) {
-    float seed[3];
-    p.seeds(seed);
-    const float cands[5] = {p.screen(seed[0], screen_iters), p.screen(seed[1], screen_iters),
-                            p.screen(seed[2], screen_iters), sub_lo, sub_hi};
+    float s0, s1, s2;
+    p.seeds(s0, s1, s2);
+    const float cands[5] = {p.screen(s0, I.screen()), p.screen(s1, I.screen()),
+                            p.screen(s2, I.screen()), sub_lo, sub_hi};
     float root = BIG_ROOT;
 #pragma unroll
     for (int i = 0; i < 5; ++i)
       if (cands[i] >= EPS && cands[i] < root) root = cands[i];
     if (root < FAKE_ROOT)
-      root = polish<0, true>(c, ox, oy, oz, dx, dy, dz, root, polish_iters);
+      root = polish<0, true>(c, ox, oy, oz, dx, dy, dz, root, I.polish());
     return root >= BIG_ROOT ? -1.f : root;
   }
   float root = qdisc < 0.f ? -1.f : (sub_lo >= EPS ? sub_lo : sub_hi);
   if (qdisc >= 0.f && root < FAKE_ROOT)
-    root = polish<0, false>(c, ox, oy, oz, dx, dy, dz, root, polish_iters);
+    root = polish<0, false>(c, ox, oy, oz, dx, dy, dz, root, I.polish());
   return root;
 }
 
-// Root for a quadric slot (Pallas `_solve_quadric`, :408-453).
-__device__ float solve_quadric(const float* c, float ox, float oy, float oz,
-                               float dx, float dy, float dz, int polish_iters) {
-  float tc[3];
-  ray_coeffs<QUAD_START, 2>(c, powers(ox, oy, oz), powers(dx, dy, dz), tc);
+// Root for a quadric slot (Pallas `_solve_quadric`, :408-453), from the
+// ray's t-polynomial tc.
+template <class It>
+__device__ __forceinline__ float solve_quadric(const float* c, const float tc[3], float ox,
+                                               float oy, float oz, float dx, float dy,
+                                               float dz, It I) {
   const float t2 = tc[2], t1 = tc[1], t0 = tc[0];
   if (!(fabsf(t2) > EPS)) return fabsf(t1) > EPS ? -t0 / t1 : -1.f;
   float lo, hi;
   const float disc = stable_quad_roots(t2, t1, t0, lo, hi);
   if (disc < 0.f) return -1.f;
   return polish<QUAD_START, false>(c, ox, oy, oz, dx, dy, dz, lo >= EPS ? lo : hi,
-                                   polish_iters < 2 ? polish_iters : 2);
+                                   I.polish() < 2 ? I.polish() : 2);
 }
 
 // Occlusion by a degree <= 2 t-polynomial from signs alone (Pallas
@@ -299,16 +410,18 @@ __device__ __forceinline__ bool quadlin_occ(float t2, float t1, float t0, float 
 }
 
 // Occlusion by a cubic slot (Pallas `cubic_occ_one`, :771-853).
-__device__ bool cubic_occ(float t3, const float h[6], const float g0[3], float f0,
-                          float sdx, float sdy, float sdz, float max_t, int shadow_iters) {
+__device__ __forceinline__ bool cubic_occ(float t3, const float h[6], const float g0[3],
+                                          float f0, float sdx, float sdy, float sdz,
+                                          float max_t, int shadow_iters) {
   const float t2 = 0.5f * (h[0] * (sdx * sdx) + h[1] * (sdy * sdy) + h[2] * (sdz * sdz))
                  + h[3] * (sdx * sdy) + h[4] * (sdx * sdz) + h[5] * (sdy * sdz);
   const float t1 = g0[0] * sdx + g0[1] * sdy + g0[2] * sdz;
   if (!(fabsf(t3) > EPS)) return quadlin_occ(t2, t1, f0, max_t, false, false);
   const Cubic p{t3, t2, t1, f0};
   float cands[5];
-  p.seeds(cands);
+  p.seeds(cands[0], cands[1], cands[2]);
   stable_quad_roots(t2, t1, f0, cands[3], cands[4]);
+#pragma unroll
   for (int i = 0; i < 5; ++i) {
     const float t = p.newton(cands[i], shadow_iters);
     if (p.residual_ok(t) && t > EPS && t < max_t) return true;
@@ -324,7 +437,7 @@ struct Tables {
   const float* dtab;   // [L, N]
   const int* orig;     // [N]
   const int* posdef;   // [N]
-  int n_obj, n_cubic, n_lights, polish_iters, shadow_iters, screen_iters;
+  int n_obj, n_cubic, n_lights;
 };
 
 struct Hit {
@@ -336,21 +449,48 @@ struct Hit {
 
 // Nearest valid hit over all slots (Pallas `nearest_hit`, :535-579): strict
 // `<` with ties to the lower original index, then the point and the normal.
-__device__ Hit trace(const Tables& T, float ox, float oy, float oz, float dx,
-                     float dy, float dz) {
+// Cubic slots first, then quadrics: the slot order of the tables. `eyeq`
+// (stage 0: the rays leave the eye) holds each slot's eye-hoisted
+// coefficients, else null.
+template <class It>
+__device__ __forceinline__ Hit trace(const Tables& T, const float* eyeq, float ox, float oy,
+                                     float oz, float dx, float dy, float dz, It I) {
   float best_t = MAX_T;
   int best_idx = -1, best_orig = 1 << 30;
-  for (int i = 0; i < T.n_obj; ++i) {
-    const float* c = T.coefs + i * N_COEFS;
-    const float t = i < T.n_cubic
-        ? solve_object(c, ox, oy, oz, dx, dy, dz, T.polish_iters, T.screen_iters)
-        : solve_quadric(c, ox, oy, oz, dx, dy, dz, T.polish_iters);
+  auto take = [&](int i, float t) {
     const int orig = T.orig[i];
     if (t >= EPS && t < MAX_T && (t < best_t || (t == best_t && orig < best_orig))) {
       best_t = t;
       best_idx = i;
       best_orig = orig;
     }
+  };
+  const Pow3 D = powers(dx, dy, dz);
+#pragma unroll 1
+  for (int i = 0; i < T.n_cubic; ++i) {
+    float c[N_COEFS], tc[4];
+    load_coefs<0>(T.coefs + i * N_COEFS, c);
+    if (eyeq) {
+      float q[N_COEFS];
+      load_coefs<0>(eyeq + i * N_COEFS, q);
+      eye_ray_coeffs<0, 3>(q, D, tc);
+    } else {
+      ray_coeffs<0, 3>(c, powers(ox, oy, oz), D, tc);
+    }
+    take(i, solve_cubic(c, tc, ox, oy, oz, dx, dy, dz, I));
+  }
+#pragma unroll 1
+  for (int i = T.n_cubic; i < T.n_obj; ++i) {
+    float c[N_COEFS], tc[3];
+    load_coefs<QUAD_START>(T.coefs + i * N_COEFS, c);
+    if (eyeq) {
+      float q[N_COEFS];
+      load_coefs<QUAD_START>(eyeq + i * N_COEFS, q);
+      eye_ray_coeffs<QUAD_START, 2>(q, D, tc);
+    } else {
+      ray_coeffs<QUAD_START, 2>(c, powers(ox, oy, oz), D, tc);
+    }
+    take(i, solve_quadric(c, tc, ox, oy, oz, dx, dy, dz, I));
   }
   Hit h;
   h.hit = best_idx >= 0;
@@ -362,8 +502,10 @@ __device__ Hit trace(const Tables& T, float ox, float oy, float oz, float dx,
   h.pz = oz + t * dz;
   h.nx = h.ny = h.nz = 0.f;
   if (h.hit) {  // normal = normalized grad F (Pallas `normal_at`, :943)
+    float c[N_COEFS];
+    load_coefs<0>(T.coefs + best_idx * N_COEFS, c);
     float f, mag, g[3];
-    eval_F<0, false, true>(T.coefs + best_idx * N_COEFS, powers(h.px, h.py, h.pz), f, mag, g);
+    eval_F<0, false, true>(c, powers(h.px, h.py, h.pz), f, mag, g);
     const float norm = sqrtf(g[0] * g[0] + g[1] * g[1] + g[2] * g[2]);
     const float inv = 1.f / (norm > 0.f ? norm : 1.f);
     h.nx = g[0] * inv;
@@ -373,107 +515,131 @@ __device__ Hit trace(const Tables& T, float ox, float oy, float oz, float dx,
   return h;
 }
 
-// Per-light shading terms for a point with normal n.
-struct LightDir {
+// A light's shadow ray from a point: direction (unnormalised to-light for a
+// spherical light) and the far end of the occlusion interval.
+struct ShadowRay {
   bool spherical;
-  float sdx, sdy, sdz;  // shadow-ray direction (unnormalised to-light for spherical)
-  float max_t, lam, cscale;
+  float sdx, sdy, sdz, max_t;
 };
 
-__device__ __forceinline__ LightDir light_dir(const float* L, const Hit& h) {
-  LightDir r;
+__device__ __forceinline__ ShadowRay shadow_ray(const float* L, const Hit& h) {
+  ShadowRay r;
   r.spherical = L[0] > 0.5f;
   if (r.spherical) {
     r.sdx = L[1] - h.px;
     r.sdy = L[2] - h.py;
     r.sdz = L[3] - h.pz;
     r.max_t = 1.f;
-    const float dist2 = r.sdx * r.sdx + r.sdy * r.sdy + r.sdz * r.sdz;
-    const float inv_dn = rsqrtf(dist2 > 0.f ? dist2 : 1.f);
-    r.lam = jmax(0.f, h.nx * (r.sdx * inv_dn) + h.ny * (r.sdy * inv_dn) + h.nz * (r.sdz * inv_dn));
-    r.cscale = 1.f / (FOUR_PI * dist2);
   } else {
     r.sdx = L[1];
     r.sdy = L[2];
     r.sdz = L[3];
     r.max_t = MAX_T;
-    r.lam = jmax(0.f, h.nx * r.sdx + h.ny * r.sdy + h.nz * r.sdz);
-    r.cscale = 1.f;
   }
   return r;
 }
 
+// A light's Lambert factor and colour scale at a point with normal n.
+struct Lambert {
+  float lam, cscale;
+};
+
+__device__ __forceinline__ Lambert lambert(const ShadowRay& r, const Hit& h) {
+  Lambert w;
+  if (r.spherical) {
+    const float dist2 = r.sdx * r.sdx + r.sdy * r.sdy + r.sdz * r.sdz;
+    const float inv_dn = rsqrtf(dist2 > 0.f ? dist2 : 1.f);
+    w.lam = jmax(0.f, h.nx * (r.sdx * inv_dn) + h.ny * (r.sdy * inv_dn) + h.nz * (r.sdz * inv_dn));
+    w.cscale = 1.f / (FOUR_PI * dist2);
+  } else {
+    w.lam = jmax(0.f, h.nx * r.sdx + h.ny * r.sdy + h.nz * r.sdz);
+    w.cscale = 1.f;
+  }
+  return w;
+}
+
 // Shadow-tested Lambertian sum over lights, clamped to 1 (Pallas `shade`,
 // :596-941). Lights go in chunks of 32 (one bitmask word); within a chunk
-// the loop runs objects outer and lights inner, so each object's F, grad F
-// and Hessian at the shadow origin are computed once per chunk. Returns the
-// occlusion bits of the first chunk (lights 0-31), the aux bitmask. A light
-// that does not face the point (lambert factor 0) is never tested, so its
-// bit stays 0 where the Pallas kernel may set it; nothing reads such a bit:
-// the backward multiplies it by ndotl <= 0 terms that are 0 (dndotl, the
-// colour and distance cotangents) whatever it holds.
-__device__ uint32_t shade(const Tables& T, const Hit& h, float out[3]) {
+// the loops run objects outer (cubic slots, then quadric slots) and lights
+// inner, so each object's F, grad F and Hessian at the shadow origin are
+// computed once per chunk. Returns the occlusion bits of the first chunk
+// (lights 0-31), the aux bitmask. A light that does not face the point
+// (lambert factor 0) is never tested, so its bit stays 0 where the Pallas
+// kernel may set it; nothing reads such a bit: the backward multiplies it by
+// ndotl <= 0 terms that are 0 (dndotl, the colour and distance cotangents)
+// whatever it holds.
+template <class It>
+__device__ __forceinline__ uint32_t shade(const Tables& T, const Hit& h, It I, float out[3]) {
   const float* col = T.colors + 3 * h.idx;
   const Pow3 S = powers(h.px + SHADOW_BIAS * h.nx, h.py + SHADOW_BIAS * h.ny,
                         h.pz + SHADOW_BIAS * h.nz);
   float acc[3] = {0.f, 0.f, 0.f};
   uint32_t bits0 = 0u;
+#pragma unroll 1
   for (int l0 = 0; l0 < T.n_lights; l0 += 32) {
     const int nl = T.n_lights - l0 < 32 ? T.n_lights - l0 : 32;
     uint32_t pending = 0u, occluded = 0u;
+#pragma unroll 1
     for (int j = 0; j < nl; ++j)
-      if (light_dir(T.lights + 7 * (l0 + j), h).lam != 0.f) pending |= 1u << j;
-    for (int i = 0; i < T.n_obj && pending; ++i) {
-      const float* c = T.coefs + i * N_COEFS;
-      float f0, mag, g0[3];
-      if (i < T.n_cubic) {
-        float hs[6];
-        eval_F<0, false, true>(c, S, f0, mag, g0);
-        hessian(c, S, hs);
-        for (uint32_t bits = pending; bits; bits &= bits - 1) {
-          const int j = __ffs(bits) - 1;
-          const int li = l0 + j;
-          const LightDir ld = light_dir(T.lights + 7 * li, h);
-          float t3;
-          if (ld.spherical) {
-            const Pow3 SD = powers(ld.sdx, ld.sdy, ld.sdz);
-            t3 = 0.f;
+      if (lambert(shadow_ray(T.lights + 7 * (l0 + j), h), h).lam != 0.f) pending |= 1u << j;
+#pragma unroll 1
+    for (int i = 0; i < T.n_cubic && pending; ++i) {
+      float c[N_COEFS];
+      load_coefs<0>(T.coefs + i * N_COEFS, c);
+      float f0, mag, g0[3], hs[6];
+      eval_F<0, false, true>(c, S, f0, mag, g0);
+      hessian(c, S, hs);
+#pragma unroll 1
+      for (uint32_t bits = pending; bits; bits &= bits - 1) {
+        const int j = __ffs(bits) - 1;
+        const int li = l0 + j;
+        const ShadowRay sr = shadow_ray(T.lights + 7 * li, h);
+        float t3;
+        if (sr.spherical) {
+          const Pow3 SD = powers(sr.sdx, sr.sdy, sr.sdz);
+          t3 = 0.f;
 #pragma unroll
-            for (int m = 0; m < QUAD_START; ++m)
-              t3 += c[m] * mono(SD, mpow(m, 0), mpow(m, 1), mpow(m, 2));
-          } else {
-            t3 = T.dtab[li * T.n_obj + i];
-          }
-          if (cubic_occ(t3, hs, g0, f0, ld.sdx, ld.sdy, ld.sdz, ld.max_t, T.shadow_iters)) {
-            occluded |= 1u << j;
-            pending &= ~(1u << j);
-          }
+          for (int m = 0; m < QUAD_START; ++m)
+            t3 += c[m] * mono(SD, mpow(m, 0), mpow(m, 1), mpow(m, 2));
+        } else {
+          t3 = T.dtab[li * T.n_obj + i];
         }
-      } else {
-        eval_F<QUAD_START, false, true>(c, S, f0, mag, g0);
-        const bool pd = T.posdef[i] != 0;
-        for (uint32_t bits = pending; bits; bits &= bits - 1) {
-          const int j = __ffs(bits) - 1;
-          const int li = l0 + j;
-          const LightDir ld = light_dir(T.lights + 7 * li, h);
-          const float sdx = ld.sdx, sdy = ld.sdy, sdz = ld.sdz;
-          const float t2 = ld.spherical
-              ? c[10] * (sdx * sdx) + c[11] * (sdy * sdy) + c[12] * (sdz * sdz)
-                    + c[13] * (sdx * sdy) + c[14] * (sdx * sdz) + c[15] * (sdy * sdz)
-              : T.dtab[li * T.n_obj + i];
-          const float t1 = g0[0] * sdx + g0[1] * sdy + g0[2] * sdz;
-          if (quadlin_occ(t2, t1, f0, ld.max_t, pd, !ld.spherical)) {
-            occluded |= 1u << j;
-            pending &= ~(1u << j);
-          }
+        if (cubic_occ(t3, hs, g0, f0, sr.sdx, sr.sdy, sr.sdz, sr.max_t, I.shadow())) {
+          occluded |= 1u << j;
+          pending &= ~(1u << j);
         }
       }
     }
+#pragma unroll 1
+    for (int i = T.n_cubic; i < T.n_obj && pending; ++i) {
+      float c[N_COEFS];
+      load_coefs<QUAD_START>(T.coefs + i * N_COEFS, c);
+      float f0, mag, g0[3];
+      eval_F<QUAD_START, false, true>(c, S, f0, mag, g0);
+      const bool pd = T.posdef[i] != 0;
+#pragma unroll 1
+      for (uint32_t bits = pending; bits; bits &= bits - 1) {
+        const int j = __ffs(bits) - 1;
+        const int li = l0 + j;
+        const ShadowRay sr = shadow_ray(T.lights + 7 * li, h);
+        const float sdx = sr.sdx, sdy = sr.sdy, sdz = sr.sdz;
+        const float t2 = sr.spherical
+            ? c[10] * (sdx * sdx) + c[11] * (sdy * sdy) + c[12] * (sdz * sdz)
+                  + c[13] * (sdx * sdy) + c[14] * (sdx * sdz) + c[15] * (sdy * sdz)
+            : T.dtab[li * T.n_obj + i];
+        const float t1 = g0[0] * sdx + g0[1] * sdy + g0[2] * sdz;
+        if (quadlin_occ(t2, t1, f0, sr.max_t, pd, !sr.spherical)) {
+          occluded |= 1u << j;
+          pending &= ~(1u << j);
+        }
+      }
+    }
+#pragma unroll 1
     for (int j = 0; j < nl; ++j) {
       const float* L = T.lights + 7 * (l0 + j);
-      const LightDir ld = light_dir(L, h);
-      const float w = (occluded >> j) & 1u ? 0.f : ld.lam * INV_PI;
-      const float scale = ld.cscale * w;
+      const Lambert lw = lambert(shadow_ray(L, h), h);
+      const float w = (occluded >> j) & 1u ? 0.f : lw.lam * INV_PI;
+      const float scale = lw.cscale * w;
       acc[0] = acc[0] + col[0] * L[4] * scale;
       acc[1] = acc[1] + col[1] * L[5] * scale;
       acc[2] = acc[2] + col[2] * L[6] * scale;
@@ -486,16 +652,17 @@ __device__ uint32_t shade(const Tables& T, const Hit& h, float out[3]) {
   return bits0;
 }
 
-__global__ void __launch_bounds__(BLOCK_X * BLOCK_Y)
+// CHAIN = false: bounces is 0 and the reflection code is compiled out.
+template <class It, bool CHAIN>
+__global__ void __launch_bounds__(BLOCK_X * BLOCK_Y, MIN_BLOCKS)
 render_fwd_kernel(const float* __restrict__ g_coefs, const int* __restrict__ g_orig,
                   const float* __restrict__ g_colors, const float* __restrict__ g_refl,
                   const float* __restrict__ g_lights, const float* __restrict__ g_dtab,
                   const int* __restrict__ g_posdef, const float* __restrict__ g_cam,
                   float* __restrict__ out, float* __restrict__ aux_t,
                   int* __restrict__ aux_slot, int* __restrict__ aux_occ, int width,
-                  int height, int rows, int n_obj,
-                  int n_cubic, int n_lights, int polish_iters, int shadow_iters,
-                  int screen_iters, int bounces) {
+                  int height, int rows, int n_obj, int n_cubic, int n_lights, It I,
+                  int bounces) {
   // --- stage the scene tables (a few KB) into shared memory ---
   extern __shared__ float smem[];
   float* s_coefs = smem;
@@ -506,6 +673,7 @@ render_fwd_kernel(const float* __restrict__ g_coefs, const int* __restrict__ g_o
   float* s_cam = s_dtab + n_lights * n_obj;
   int* s_orig = reinterpret_cast<int*>(s_cam + 18);
   int* s_posdef = s_orig + n_obj;
+  float* s_eyeq = reinterpret_cast<float*>(s_posdef + n_obj);
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   const int nthreads = blockDim.x * blockDim.y;
   // empty tables may come with a null pointer: the loop bounds keep them unread
@@ -520,13 +688,25 @@ render_fwd_kernel(const float* __restrict__ g_coefs, const int* __restrict__ g_o
   for (int k = tid; k < n_lights * n_obj; k += nthreads) s_dtab[k] = g_dtab[k];
   for (int k = tid; k < 18; k += nthreads) s_cam[k] = g_cam[k];
   __syncthreads();
+  {  // each slot's eye-hoisted coefficients for stage 0
+    const Pow3 E = powers(s_cam[9], s_cam[10], s_cam[11]);
+    for (int i = tid; i < n_obj; i += nthreads) {
+      float c[N_COEFS], q[N_COEFS];
+      load_coefs<0>(s_coefs + i * N_COEFS, c);
+      eye_coeffs(c, E, q);
+#pragma unroll
+      for (int n = 0; n < N_COEFS; ++n) s_eyeq[i * N_COEFS + n] = q[n];
+    }
+  }
+  __syncthreads();
 
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y_local = blockIdx.y * blockDim.y + threadIdx.y;
   if (x >= width || y_local >= rows) return;
 
-  const Tables T{s_coefs, s_colors, s_lights, s_dtab, s_orig, s_posdef, n_obj,
-                 n_cubic, n_lights, polish_iters, shadow_iters, screen_iters};
+  const Tables T{s_coefs, s_colors, s_lights, s_dtab, s_orig, s_posdef, n_obj, n_cubic,
+                 n_lights};
+  if (!CHAIN) bounces = 0;
 
   // --- ray generation (Pallas kernel :984-1016) ---
   const int y = y_local + (int)s_cam[17];
@@ -539,6 +719,7 @@ render_fwd_kernel(const float* __restrict__ g_coefs, const int* __restrict__ g_o
   const float tz = cx * s_cam[2] + cy * s_cam[5] + s_cam[8];
   const float inv_len = rsqrtf(tx * tx + ty * ty + tz * tz);
   float dx = tx * inv_len, dy = ty * inv_len, dz = tz * inv_len;
+  float ox = s_cam[9], oy = s_cam[10], oz = s_cam[11];
   const float bg[3] = {s_cam[14], s_cam[15], s_cam[16]};
 
   // aux of stage s for this pixel sits at s * stage + pix
@@ -553,61 +734,49 @@ render_fwd_kernel(const float* __restrict__ g_coefs, const int* __restrict__ g_o
     }
   }
 
-  Hit h = trace(T, s_cam[9], s_cam[10], s_cam[11], dx, dy, dz);
-  float result[3] = {bg[0], bg[1], bg[2]};
-  if (h.hit) {
-    const uint32_t bits = shade(T, h, result);
-    if (save_aux) {
-      aux_t[pix] = h.t;
-      aux_slot[pix] = h.idx;
-      aux_occ[pix] = (int)bits;
+  // --- stage 0, then the reflection chain (Pallas kernel :1031-1130): one
+  // trace-and-shade per entered stage; a stage that misses ends the chain,
+  // and a hit at the cap stage blends in the background ---
+  float result[3];
+  float ratio = 1.f;
+#pragma unroll 1
+  for (int k = 0;; ++k) {
+    const Hit h = trace(T, k == 0 ? s_eyeq : nullptr, ox, oy, oz, dx, dy, dz, I);
+    float col[3] = {bg[0], bg[1], bg[2]};
+    if (h.hit) {
+      const uint32_t bits = shade(T, h, I, col);
+      if (save_aux) {  // stage 0, or entered and hit: the lane advances into stage k
+        aux_t[k * stage + pix] = h.t;
+        aux_slot[k * stage + pix] = h.idx;
+        aux_occ[k * stage + pix] = (int)bits;
+      }
     }
-  }
-
-  // --- reflection chain (Pallas kernel :1031-1130) ---
-  if (h.hit && bounces > 0) {
-    float ratio = 1.f;
-    float refl_c = s_refl[h.idx];
-    bool active = true;
-    for (int k = 0; k < bounces; ++k) {
-      if (!(refl_c > EPS)) {
-        active = false;
-        break;
-      }
-      ratio = ratio * refl_c;
-      const float dot = dx * h.nx + dy * h.ny + dz * h.nz;
-      const float rdx = dx - 2.f * dot * h.nx;
-      const float rdy = dy - 2.f * dot * h.ny;
-      const float rdz = dz - 2.f * dot * h.nz;
-      const Hit h2 = trace(T, h.px + SHADOW_BIAS * h.nx, h.py + SHADOW_BIAS * h.ny,
-                           h.pz + SHADOW_BIAS * h.nz, rdx, rdy, rdz);
-      float bcol[3] = {bg[0], bg[1], bg[2]};
-      if (h2.hit) {
-        const uint32_t bits = shade(T, h2, bcol);
-        if (save_aux) {  // entered and hit: the lane advances into stage k + 1
-          aux_t[(k + 1) * stage + pix] = h2.t;
-          aux_slot[(k + 1) * stage + pix] = h2.idx;
-          aux_occ[(k + 1) * stage + pix] = (int)bits;
-        }
-      }
+    if (k == 0) {
 #pragma unroll
-      for (int c = 0; c < 3; ++c) result[c] = (1.f - ratio) * result[c] + ratio * bcol[c];
-      dx = rdx;
-      dy = rdy;
-      dz = rdz;
-      if (!h2.hit) {
-        active = false;
-        break;
-      }
-      h = h2;
-      refl_c = s_refl[h2.idx];
-    }
-    // at-cap background blend
-    if (active && refl_c > EPS) {
-      const float rr = ratio * refl_c;
+      for (int c = 0; c < 3; ++c) result[c] = col[c];
+    } else {
 #pragma unroll
-      for (int c = 0; c < 3; ++c) result[c] = (1.f - rr) * result[c] + rr * bg[c];
+      for (int c = 0; c < 3; ++c) result[c] = (1.f - ratio) * result[c] + ratio * col[c];
     }
+    if (!CHAIN || !h.hit) break;
+    const float refl_c = s_refl[h.idx];
+    if (k == bounces) {  // at-cap background blend
+      if (bounces > 0 && refl_c > EPS) {
+        const float rr = ratio * refl_c;
+#pragma unroll
+        for (int c = 0; c < 3; ++c) result[c] = (1.f - rr) * result[c] + rr * bg[c];
+      }
+      break;
+    }
+    if (!(refl_c > EPS)) break;
+    ratio = ratio * refl_c;
+    const float dot = dx * h.nx + dy * h.ny + dz * h.nz;
+    ox = h.px + SHADOW_BIAS * h.nx;
+    oy = h.py + SHADOW_BIAS * h.ny;
+    oz = h.pz + SHADOW_BIAS * h.nz;
+    dx = dx - 2.f * dot * h.nx;
+    dy = dy - 2.f * dot * h.ny;
+    dz = dz - 2.f * dot * h.nz;
   }
 
   float* o = out + 3 * ((size_t)y_local * width + x);
@@ -616,34 +785,66 @@ render_fwd_kernel(const float* __restrict__ g_coefs, const int* __restrict__ g_o
   o[2] = result[2];
 }
 
+struct Args {
+  const void *coefs, *orig, *colors, *refl, *lights, *dtab, *posdef, *cam;
+  void *out, *aux_t, *aux_slot, *aux_occ;
+  int width, height, rows, n_obj, n_cubic, n_lights, bounces;
+};
+
+template <class It, bool CHAIN>
+int launch(const Args& a, It iters, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * ((size_t)a.n_obj * (2 * N_COEFS + 3 + 1)
+                                       + (size_t)a.n_lights * 7
+                                       + (size_t)a.n_lights * a.n_obj + 18)
+                    + sizeof(int) * 2 * (size_t)a.n_obj;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        render_fwd_kernel<It, CHAIN>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 block(BLOCK_X, BLOCK_Y);
+  const dim3 grid((a.width + BLOCK_X - 1) / BLOCK_X, (a.rows + BLOCK_Y - 1) / BLOCK_Y);
+  render_fwd_kernel<It, CHAIN><<<grid, block, smem, stream>>>(
+      static_cast<const float*>(a.coefs), static_cast<const int*>(a.orig),
+      static_cast<const float*>(a.colors), static_cast<const float*>(a.refl),
+      static_cast<const float*>(a.lights), static_cast<const float*>(a.dtab),
+      static_cast<const int*>(a.posdef), static_cast<const float*>(a.cam),
+      static_cast<float*>(a.out), static_cast<float*>(a.aux_t), static_cast<int*>(a.aux_slot),
+      static_cast<int*>(a.aux_occ), a.width, a.height, a.rows, a.n_obj, a.n_cubic, a.n_lights,
+      iters, a.bounces);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
+// variant: 0 = the main path's counts (polish 3, screen 3, shadow 1) without
+// a chain (bounces 0); 1 = the same counts with a chain; 2 = generic
+// (runtime counts, any bounces). A variant that does not fit the arguments
+// is refused with cudaErrorInvalidValue.
 extern "C" int trt_render_fwd(const void* coefs, const void* orig_index, const void* colors,
                               const void* refl, const void* lights, const void* dir_table,
                               const void* posdef, const void* cam, void* out, void* aux_t,
                               void* aux_slot, void* aux_occ, int width,
                               int height, int rows, int n_obj, int n_cubic, int n_lights,
                               int polish_iters, int shadow_iters, int screen_iters,
-                              int bounces, void* stream) {
-  const size_t smem = sizeof(float) * ((size_t)n_obj * (N_COEFS + 3 + 1) + (size_t)n_lights * 7
-                                       + (size_t)n_lights * n_obj + 18)
-                    + sizeof(int) * 2 * (size_t)n_obj;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        render_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
+                              int bounces, int variant, void* stream) {
+  const Args a{coefs, orig_index, colors, refl, lights, dir_table, posdef, cam, out, aux_t,
+               aux_slot, aux_occ, width, height, rows, n_obj, n_cubic, n_lights, bounces};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool main_counts = polish_iters == 3 && screen_iters == 3 && shadow_iters == 1;
+  switch (variant) {
+    case 0:
+      if (!main_counts || bounces != 0) return (int)cudaErrorInvalidValue;
+      return launch<MainIters, false>(a, MainIters{}, st);
+    case 1:
+      if (!main_counts) return (int)cudaErrorInvalidValue;
+      return launch<MainIters, true>(a, MainIters{}, st);
+    case 2:
+      return launch<RuntimeIters, true>(a, RuntimeIters{polish_iters, screen_iters, shadow_iters},
+                                        st);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  const dim3 block(BLOCK_X, BLOCK_Y);
-  const dim3 grid((width + BLOCK_X - 1) / BLOCK_X, (rows + BLOCK_Y - 1) / BLOCK_Y);
-  render_fwd_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(coefs), static_cast<const int*>(orig_index),
-      static_cast<const float*>(colors), static_cast<const float*>(refl),
-      static_cast<const float*>(lights), static_cast<const float*>(dir_table),
-      static_cast<const int*>(posdef), static_cast<const float*>(cam),
-      static_cast<float*>(out), static_cast<float*>(aux_t), static_cast<int*>(aux_slot),
-      static_cast<int*>(aux_occ), width, height, rows, n_obj, n_cubic, n_lights, polish_iters,
-      shadow_iters, screen_iters, bounces);
-  return (int)cudaGetLastError();
 }
 
 extern "C" const char* trt_cuda_error_string(int code) {

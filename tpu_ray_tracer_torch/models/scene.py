@@ -101,12 +101,16 @@ def build_scene(
     lights: Sequence[light_mod.Light],
     max_reflections: int = DEFAULT_MAX_REFLECTIONS,
     bg_color=DEFAULT_BG_COLOR,
+    device: str | torch.device = "cuda",
 ) -> Scene:
-    """Assemble a CPU ``Scene`` from parsed objects and lights.
+    """Assemble a ``Scene`` on ``device`` (the GPU unless the caller asks for
+    another) from parsed objects and lights.
 
     Performs the reference's constructor-time validation (src/scene.cpp:9-22):
     color range checks and the degrees-to-radians fov conversion. Empty object
-    or light sequences are legal and give ``[0, ...]`` tables.
+    or light sequences are legal and give ``[0, ...]`` tables. Without a CUDA
+    device the default raises (``resolve_device``); pass ``device="cpu"``
+    for a CPU scene.
     """
     bg = np.asarray(bg_color, dtype=np.float32)
     validate_color(bg)
@@ -131,8 +135,20 @@ def build_scene(
     return scene_from_arrays(
         coefs, obj_colors, refl, light_p, light_color, light_sph, bg,
         np.float64(math.tan(0.5 * fov_rad)), width, height, max_reflections,
-        device="cpu",
+        device=device,
     )
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; raises where it names CUDA and no
+    CUDA device is present, so that a scene never lands on the CPU unasked."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"no CUDA device for the scene tables (device={str(device)!r}, "
+            "torch.cuda.is_available() is false); pass device=\"cpu\" to load "
+            "or build the scene on the CPU")
+    return dev
 
 
 def scene_from_arrays(coefs, colors, reflection, light_p, light_color,
@@ -143,7 +159,7 @@ def scene_from_arrays(coefs, colors, reflection, light_p, light_color,
     This is how a scene crosses from the JAX package: ``np.asarray`` of each
     field of a ``tpu_ray_tracer`` ``Scene`` gives these arguments.
     """
-    t = functools.partial(_tensor, device=device)
+    t = functools.partial(_tensor, device=resolve_device(device))
     return Scene(
         coefs=t(coefs), colors=t(colors), reflection=t(reflection),
         light_p=t(light_p), light_color=t(light_color),

@@ -32,17 +32,19 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _SIGNATURES = {
     "render_fwd": {
         # 8 tables, out, aux t/slot/occ (null without save_aux) | width height
-        # rows n_obj n_cubic n_lights polish shadow screen bounces | stream
-        "trt_render_fwd": ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 10
+        # rows n_obj n_cubic n_lights polish shadow screen bounces variant | stream
+        "trt_render_fwd": ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 11
                            + [ctypes.c_void_p], ctypes.c_int),
     },
     "render_bwd": {
         # coefs colors refl lights cam, cotangent, aux t/slot/occ, scratch, out
-        # | width height rows n_obj n_lights bounces | stream
-        "trt_render_bwd": ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
+        # | width height rows n_obj n_lights bounces placement blocks | stream
+        "trt_render_bwd": ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
                            + [ctypes.c_void_p], ctypes.c_int),
-        # width rows n_obj n_lights -> floats of scratch the launch needs
-        "trt_render_bwd_scratch": ([ctypes.c_int] * 4, ctypes.c_longlong),
+        # width rows n_obj n_lights bounces, out[3] (placement, blocks,
+        # floats of scratch) -> CUDA error
+        "trt_render_bwd_plan": ([ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong)],
+                                ctypes.c_int),
     },
 }
 
@@ -60,19 +62,10 @@ def _nvcc() -> str:
     return found
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` (with the ``csrc`` headers) unless a build
-    of the same sources and flags exists; return the library's path. The
-    compiler's report (registers, spills per kernel) is kept beside it in
-    ``ptxas.txt``."""
-    source = _CSRC / f"{name}.cu"
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in [source, *sorted(_CSRC.glob("*.cuh"))]:
-        digest.update(path.name.encode())
-        digest.update(path.read_bytes())
-    out = BUILD_ROOT / digest.hexdigest()[:16] / f"lib{name}.so"
-    if out.is_file():
-        return out
+def compile_source(source: Path, out: Path) -> Path:
+    """Compile ``source`` (a ``.cu`` file, its headers beside it) with
+    ``NVCC_FLAGS`` into the library ``out``; the compiler's report
+    (registers, spills per kernel) is kept beside it in ``ptxas.txt``."""
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
@@ -82,6 +75,20 @@ def build(name: str) -> Path:
     (out.parent / "ptxas.txt").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, out)  # atomic: a concurrent process never loads half a file
     return out
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless a build of the same sources and
+    flags exists; return the library's path."""
+    source = _CSRC / f"{name}.cu"
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [source, *sorted(_CSRC.glob("*.cuh"))]:
+        digest.update(path.name.encode())
+        digest.update(path.read_bytes())
+    out = BUILD_ROOT / digest.hexdigest()[:16] / f"lib{name}.so"
+    if out.is_file():
+        return out
+    return compile_source(source, out)
 
 
 @functools.cache

@@ -28,6 +28,8 @@ written only when ``bounces > 0``.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 
 import numpy as np
@@ -117,26 +119,148 @@ def _hessian_apply(coef, cache, one, v):
     return [o if o is not None else zero for o in out]
 
 
-def render_bwd_plain(coefs, colors, refl, lights, cam, grad_image, aux_t, aux_slot,
-                     aux_occ, *, width: int, height: int, rows: int, n_lights: int,
-                     bounces: int) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: the gradient vector (f32,
-    ``acc_layout(N, L)[-1]`` rows) for image rows [row0, row0 + rows),
-    row0 = cam[17]. Follows the Pallas kernel body :1628-1976."""
+def _geometry(sel, o, d, t):
+    """Point, cached point powers, grad F, 1 / |grad F| and unit normal of a
+    stage from its ray (o, d) and hit distance t (Pallas :1722-1728)."""
+    p = [o[k] + t * d[k] for k in range(3)]
+    pcache = _powers3(*p)
+    _f, _mag, gF = _eval_F_and_grad(sel, pcache, need_mag=False)
+    nu = torch.sqrt(gF[0] * gF[0] + gF[1] * gF[1] + gF[2] * gF[2])
+    inv_nu = 1.0 / torch.where(nu > 0, nu, 1.0)
+    n = [gF[k] * inv_nu for k in range(3)]
+    return p, pcache, gF, inv_nu, n
+
+
+def _light_terms(light, sph, li, p, n, occ):
+    """The forward's shading quantities for light ``li`` (``light``: its 7
+    table values; ``sph``: its kind) at a stage's point, normal and
+    occlusion bits (Pallas ``light_terms``, :1667, static-kind branches)."""
+    lp, lc = light[1:4], light[4:7]
+    if sph:
+        to = [lp[k] - p[k] for k in range(3)]
+        dist2 = to[0] * to[0] + to[1] * to[1] + to[2] * to[2]
+        inv_dn = torch.rsqrt(torch.where(dist2 > 0, dist2, 1.0))
+        ld = [to[k] * inv_dn for k in range(3)]
+        colr = [lc[k] / (_FOUR_PI * dist2) for k in range(3)]
+    else:  # directional: the stored direction and colour, no falloff
+        to = dist2 = inv_dn = None
+        ld = lp
+        colr = lc
+    ndotl = n[0] * ld[0] + n[1] * ld[1] + n[2] * ld[2]
+    lam = torch.clamp(ndotl, min=0.0)
+    notocc = 1.0 - ((occ >> li) & 1).to(torch.float32)
+    return dict(sph=sph, to=to, dist2=dist2, inv_dn=inv_dn, ld=ld, colr=colr, ndotl=ndotl,
+                lam=lam, notocc=notocc)
+
+
+def _light_bwd(lt, dlit, objc, n, dobjc, dn, dpoint):
+    """Reverse one light's term of the Lambertian sum (Pallas ``shade_bwd``,
+    :1775) from its ``_light_terms`` ``lt``: adds into the stage's running
+    ``dobjc``, ``dn`` and ``dpoint`` (lists, updated in place) and returns
+    the light's row values by column of the light table (1-3 position or
+    direction, 4-6 colour)."""
+    sph, ld, colr, lam = lt["sph"], lt["ld"], lt["colr"], lt["lam"]
+    rows = {}
+    u_lam = [dlit[c] * lt["notocc"] for c in range(3)]
+    dlam = ddist2 = torch.zeros_like(dlit[0])
+    for c in range(3):
+        dobjc[c] = dobjc[c] + u_lam[c] * _INV_PI * colr[c] * lam
+        dcol_c = u_lam[c] * objc[c] * _INV_PI * lam
+        dlam = dlam + u_lam[c] * objc[c] * _INV_PI * colr[c]
+        if sph:
+            rows[4 + c] = dcol_c / (_FOUR_PI * lt["dist2"])
+            ddist2 = ddist2 - dcol_c * colr[c] / lt["dist2"]
+        else:
+            rows[4 + c] = dcol_c
+    dndotl = dlam * (lt["ndotl"] > 0).to(torch.float32)
+    dld = [dndotl * n[k] for k in range(3)]
+    for k in range(3):
+        dn[k] = dn[k] + dndotl * ld[k]
+    if not sph:
+        for k in range(3):
+            rows[1 + k] = dld[k]
+        return rows
+    udot = ld[0] * dld[0] + ld[1] * dld[1] + ld[2] * dld[2]
+    for k in range(3):
+        dto_k = (dld[k] - ld[k] * udot) * lt["inv_dn"] + 2.0 * lt["to"][k] * ddist2
+        rows[1 + k] = dto_k
+        dpoint[k] = dpoint[k] - dto_k
+    return rows
+
+
+def _normal_root_bwd(st, dn, dpoint):
+    """Close a stage past its shading (Pallas ``stage_bwd``, :1834) from the
+    cotangents of its normal and point: the normal backward through grad F
+    and the Hessian, the point p = o + t d, and the implicit-function root
+    backward clamped at grazing. Returns (dsel [20], do, dd)."""
+    n, gF, pcache, sel = st["n"], st["gF"], st["pcache"], st["sel"]
+    t, d = st["t"], st["d"]
+    one, zero = torch.ones_like(t), torch.zeros_like(t)
+    # normal backward: n = gF / |gF|
+    ndotdn = n[0] * dn[0] + n[1] * dn[1] + n[2] * dn[2]
+    dgF = [(dn[k] - n[k] * ndotdn) * st["inv_nu"] for k in range(3)]
+    dsel = [zero] * N_COEFS
+    for axis in range(3):
+        dmono = _dmono_fields(pcache, one, axis)
+        for m in range(N_COEFS):
+            if dmono[m] is not None:
+                dsel[m] = dsel[m] + dgF[axis] * dmono[m]
+    hv = _hessian_apply(sel, pcache, one, dgF)
+    dpoint = [dpoint[k] + hv[k] for k in range(3)]
+
+    # point backward: p = o + t d
+    dt = dpoint[0] * d[0] + dpoint[1] * d[1] + dpoint[2] * d[2]
+    do = list(dpoint)
+    dd = [t * dpoint[k] for k in range(3)]
+
+    # implicit-function-theorem root backward, clamped at grazing
+    df_dt = gF[0] * d[0] + gF[1] * d[1] + gF[2] * d[2]
+    valid = st["hit"] & (torch.abs(df_dt) > GRAZING_CLAMP)
+    sc = dt * torch.where(valid, -1.0 / torch.where(valid, df_dt, 1.0), 0.0)
+    mono = _mono_fields(pcache, one)
+    for m in range(N_COEFS):
+        dsel[m] = dsel[m] + sc * mono[m]
+    for k in range(3):
+        do[k] = do[k] + sc * gF[k]
+        dd[k] = dd[k] + sc * t * gF[k]
+    return dsel, do, dd
+
+
+def _camera_rows(ray, cam, do, dd):
+    """Camera rows 0-13 of each pixel from the cotangents (do, dd) of its
+    primary ray (d0 = target / |target|, target = cx R0 + cy R1 + R2)."""
+    d0, inv_len = ray["d0"], ray["inv_len"]
+    dddot = d0[0] * dd[0] + d0[1] * dd[1] + d0[2] * dd[2]
+    dtg = [(dd[k] - d0[k] * dddot) * inv_len for k in range(3)]
+    rows = [None] * 14
+    for k in range(3):
+        rows[k] = ray["cx"] * dtg[k]
+        rows[3 + k] = ray["cy"] * dtg[k]
+        rows[6 + k] = dtg[k]
+        rows[9 + k] = do[k]
+    dcx = dtg[0] * cam[0] + dtg[1] * cam[1] + dtg[2] * cam[2]
+    dcy = dtg[0] * cam[3] + dtg[1] * cam[4] + dtg[2] * cam[5]
+    rows[12] = ray["gxf"] * dcx
+    rows[13] = ray["gyf"] * dcy
+    return rows
+
+
+def chain_states(coefs, colors, refl, lights, cam, aux_t, aux_slot, aux_occ, *, width: int,
+                 height: int, rows: int, bounces: int):
+    """Phase A of the backward (Pallas :1716-1771): regenerate the primary
+    ray and rebuild the reflection chain forward from the aux, with no root
+    solve. Returns the primary ray's fields (d0, inv_len, cx, cy, gxf, gyf)
+    and per stage a dict of its aux, gathered table rows, ray, geometry
+    (``_geometry``), each light's ``_light_terms`` and the pre-clamp lit
+    sum."""
     dev = coefs.device
-    n_obj = coefs.shape[0]
-    row_cam, row_coefs, row_colors, row_lights, row_refl, total = acc_layout(n_obj, n_lights)
+    n_obj, n_lights = coefs.shape[0], lights.shape[0]
     n_stages = bounces + 1
     kinds = [k > 0.5 for k in lights[:, 0].tolist()]
     lrows = [list(row.unbind(0)) for row in lights.unbind(0)]
     coefs_pad = torch.cat([coefs, coefs.new_zeros(1, N_COEFS)])
     colors_pad = torch.cat([colors, colors.new_zeros(1, 3)])
     refl_pad = torch.cat([refl, refl.new_zeros(1)])
-
-    contrib = {}
-
-    def add(row, field):
-        contrib[row] = field if row not in contrib else contrib[row] + field
 
     # --- regenerate the primary ray (identical math to the forward) ---
     n_px = rows * width
@@ -155,39 +279,12 @@ def render_bwd_plain(coefs, colors, refl, lights, cam, grad_image, aux_t, aux_sl
     tz = cx * cam[2] + cy * cam[5] + cam[8]
     inv_len = torch.rsqrt(tx * tx + ty * ty + tz * tz)
     d0 = [tx * inv_len, ty * inv_len, tz * inv_len]
+    ray = dict(d0=d0, inv_len=inv_len, cx=cx, cy=cy, gxf=gxf, gyf=gyf)
 
-    g = list(grad_image.reshape(n_px, 3).unbind(1))
-    one = torch.ones_like(d0[0])
     zero = torch.zeros_like(d0[0])
-    bg = [cam[14 + c].expand(n_px) for c in range(3)]
     aux_t = aux_t.reshape(n_stages, n_px)
     aux_slot = aux_slot.reshape(n_stages, n_px)
     aux_occ = aux_occ.reshape(n_stages, n_px)
-
-    def light_terms(li, st):
-        """The forward's shading quantities for light li at a stage's
-        (point, normal, occlusion bits), specialised on the light's kind
-        (Pallas ``light_terms``, :1667, static-kind branches)."""
-        p, n, occ = st["p"], st["n"], st["occ"]
-        lp, lc = lrows[li][1:4], lrows[li][4:7]
-        sph = kinds[li]
-        if sph:
-            to = [lp[k] - p[k] for k in range(3)]
-            dist2 = to[0] * to[0] + to[1] * to[1] + to[2] * to[2]
-            inv_dn = torch.rsqrt(torch.where(dist2 > 0, dist2, 1.0))
-            unit = [to[k] * inv_dn for k in range(3)]
-            ld = unit
-            colr = [lc[k] / (_FOUR_PI * dist2) for k in range(3)]
-        else:  # directional: the stored direction and colour, no falloff
-            to = dist2 = inv_dn = unit = None
-            ld = lp
-            colr = lc
-        ndotl = n[0] * ld[0] + n[1] * ld[1] + n[2] * ld[2]
-        lam = torch.clamp(ndotl, min=0.0)
-        notocc = 1.0 - ((occ >> li) & 1).to(torch.float32)
-        return sph, to, dist2, inv_dn, unit, ld, colr, ndotl, lam, notocc
-
-    # === Phase A: reconstruct the chain forward (no root solves) ===
     states = []
     o = [cam[9 + k].expand(n_px) for k in range(3)]
     d = d0
@@ -199,30 +296,48 @@ def render_bwd_plain(coefs, colors, refl, lights, cam, grad_image, aux_t, aux_sl
         gidx = torch.where(hit, slot, n_obj).to(torch.int64)  # -1 reads the zero row
         sel = list(coefs_pad[gidx].unbind(1))
         objc = list(colors_pad[gidx].unbind(1))
-        rfl = refl_pad[gidx]
-        p = [o[k] + t * d[k] for k in range(3)]
-        pcache = _powers3(*p)
-        _f, _mag, gF = _eval_F_and_grad(sel, pcache, need_mag=False)
-        nu = torch.sqrt(gF[0] * gF[0] + gF[1] * gF[1] + gF[2] * gF[2])
-        inv_nu = 1.0 / torch.where(nu > 0, nu, 1.0)
-        n = [gF[k] * inv_nu for k in range(3)]
-        st = dict(t=t, slot=slot, gidx=gidx, occ=occ, hit=hit,
-                  hitf=hit.to(torch.float32), sel=sel, objc=objc, rfl=rfl, o=o, d=d,
-                  p=p, pcache=pcache, gF=gF, inv_nu=inv_nu, n=n)
+        p, pcache, gF, inv_nu, n = _geometry(sel, o, d, t)
+        terms = [_light_terms(lrows[li], kinds[li], li, p, n, occ) for li in range(n_lights)]
         # pre-clamp lit: sets both the clamp mask and the blended colour chain
         lit = [zero, zero, zero]
-        for li in range(n_lights):
-            *_, colr, _ndotl, lam, notocc = light_terms(li, st)
-            w = lam * _INV_PI * notocc
+        for lt in terms:
+            w = lt["lam"] * _INV_PI * lt["notocc"]
             for c in range(3):
-                lit[c] = lit[c] + objc[c] * colr[c] * w
-        st["lit"] = lit
-        st["litc"] = [torch.clamp(lit[c], max=1.0) for c in range(3)]
-        states.append(st)
+                lit[c] = lit[c] + objc[c] * lt["colr"][c] * w
+        states.append(dict(t=t, slot=slot, gidx=gidx, occ=occ, hit=hit,
+                           hitf=hit.to(torch.float32), sel=sel, objc=objc,
+                           rfl=refl_pad[gidx], o=o, d=d, p=p, pcache=pcache, gF=gF,
+                           inv_nu=inv_nu, n=n, lights=terms, lit=lit,
+                           litc=[torch.clamp(lit[c], max=1.0) for c in range(3)]))
         if s + 1 < n_stages:
             o = [p[k] + SHADOW_BIAS * n[k] for k in range(3)]
             dot = d[0] * n[0] + d[1] * n[1] + d[2] * n[2]
             d = [d[k] - 2.0 * dot * n[k] for k in range(3)]
+    return ray, states
+
+
+def render_bwd_plain(coefs, colors, refl, lights, cam, grad_image, aux_t, aux_slot,
+                     aux_occ, *, width: int, height: int, rows: int, n_lights: int,
+                     bounces: int) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: the gradient vector (f32,
+    ``acc_layout(N, L)[-1]`` rows) for image rows [row0, row0 + rows),
+    row0 = cam[17]. Follows the Pallas kernel body :1628-1976."""
+    dev = coefs.device
+    n_obj = coefs.shape[0]
+    row_cam, row_coefs, row_colors, row_lights, row_refl, total = acc_layout(n_obj, n_lights)
+    n_stages = bounces + 1
+    ray, states = chain_states(coefs, colors, refl, lights, cam, aux_t, aux_slot, aux_occ,
+                               width=width, height=height, rows=rows, bounces=bounces)
+    n_px = rows * width
+    g = list(grad_image.reshape(n_px, 3).unbind(1))
+    one = torch.ones_like(ray["d0"][0])
+    zero = torch.zeros_like(ray["d0"][0])
+    bg = [cam[14 + c].expand(n_px) for c in range(3)]
+
+    contrib = {}
+
+    def add(row, field):
+        contrib[row] = field if row not in contrib else contrib[row] + field
 
     # blend chains: per-stage colour c_s and cumulative ratio r_s
     st0 = states[0]
@@ -246,80 +361,17 @@ def render_bwd_plain(coefs, colors, refl, lights, cam, grad_image, aux_t, aux_sl
     # drefl; slot -1 lands in the dropped row n_obj
     obj_acc = torch.zeros(n_obj + 1, N_COEFS + 4, dtype=torch.float32, device=dev)
 
-    def shade_bwd(st, dlit):
-        """Reverse through the per-light Lambertian sum; light rows go to
-        add(); returns the stage's (dn, dpoint, dobjc)."""
-        objc, n = st["objc"], st["n"]
-        dn_acc = [zero, zero, zero]
-        dpoint = [zero, zero, zero]
-        dobjc = [zero, zero, zero]
-        for li in range(n_lights):
-            sph, to, dist2, inv_dn, unit, ld, colr, ndotl, lam, notocc = light_terms(li, st)
-            u_lam = [dlit[c] * notocc for c in range(3)]
-            dlam = zero
-            ddist2 = zero
-            for c in range(3):
-                dobjc[c] = dobjc[c] + u_lam[c] * _INV_PI * colr[c] * lam
-                dcol_c = u_lam[c] * objc[c] * _INV_PI * lam
-                dlam = dlam + u_lam[c] * objc[c] * _INV_PI * colr[c]
-                if sph:
-                    add(row_lights + li * 7 + 4 + c, dcol_c / (_FOUR_PI * dist2))
-                    ddist2 = ddist2 - dcol_c * colr[c] / dist2
-                else:
-                    add(row_lights + li * 7 + 4 + c, dcol_c)
-            dndotl = dlam * (ndotl > 0).to(torch.float32)
-            dld = [dndotl * n[k] for k in range(3)]
-            for k in range(3):
-                dn_acc[k] = dn_acc[k] + dndotl * ld[k]
-            if not sph:
-                for k in range(3):
-                    add(row_lights + li * 7 + 1 + k, dld[k])
-                continue
-            udot = unit[0] * dld[0] + unit[1] * dld[1] + unit[2] * dld[2]
-            for k in range(3):
-                dto_k = (dld[k] - unit[k] * udot) * inv_dn + 2.0 * to[k] * ddist2
-                add(row_lights + li * 7 + 1 + k, dto_k)
-                dpoint[k] = dpoint[k] - dto_k
-        return dn_acc, dpoint, dobjc
-
     def stage_bwd(st, dlit, dn_in, dp_in, drefl_val):
         """Close one stage: shading -> normal -> point -> root backward;
         scatter the per-object rows; return (do, dd) of the stage's ray."""
-        dn_sh, dp_sh, dobjc = shade_bwd(st, dlit)
+        dn_sh, dp_sh, dobjc = [zero] * 3, [zero] * 3, [zero] * 3
+        for li, lt in enumerate(st["lights"]):
+            for col, value in _light_bwd(lt, dlit, st["objc"], st["n"], dobjc, dn_sh,
+                                         dp_sh).items():
+                add(row_lights + li * 7 + col, value)
         dn = [dn_in[k] + dn_sh[k] for k in range(3)]
         dpoint = [dp_in[k] + dp_sh[k] for k in range(3)]
-        n, gF, pcache, sel = st["n"], st["gF"], st["pcache"], st["sel"]
-        t, d = st["t"], st["d"]
-
-        # normal backward: n = gF / |gF|
-        ndotdn = n[0] * dn[0] + n[1] * dn[1] + n[2] * dn[2]
-        dgF = [(dn[k] - n[k] * ndotdn) * st["inv_nu"] for k in range(3)]
-        dsel = [zero] * N_COEFS
-        for axis in range(3):
-            dmono = _dmono_fields(pcache, one, axis)
-            for m in range(N_COEFS):
-                if dmono[m] is not None:
-                    dsel[m] = dsel[m] + dgF[axis] * dmono[m]
-        hv = _hessian_apply(sel, pcache, one, dgF)
-        for k in range(3):
-            dpoint[k] = dpoint[k] + hv[k]
-
-        # point backward: p = o + t d
-        dt = dpoint[0] * d[0] + dpoint[1] * d[1] + dpoint[2] * d[2]
-        do = list(dpoint)
-        dd = [t * dpoint[k] for k in range(3)]
-
-        # implicit-function-theorem root backward, clamped at grazing
-        df_dt = gF[0] * d[0] + gF[1] * d[1] + gF[2] * d[2]
-        valid = st["hit"] & (torch.abs(df_dt) > GRAZING_CLAMP)
-        sc = dt * torch.where(valid, -1.0 / torch.where(valid, df_dt, 1.0), 0.0)
-        mono = _mono_fields(pcache, one)
-        for m in range(N_COEFS):
-            dsel[m] = dsel[m] + sc * mono[m]
-        for k in range(3):
-            do[k] = do[k] + sc * gF[k]
-            dd[k] = dd[k] + sc * t * gF[k]
-
+        dsel, do, dd = _normal_root_bwd(st, dn, dpoint)
         rows_obj = [*dsel, *dobjc, zero if drefl_val is None else drefl_val]
         obj_acc.index_add_(0, st["gidx"], torch.stack(rows_obj, dim=1))
         return do, dd
@@ -388,18 +440,8 @@ def render_bwd_plain(coefs, colors, refl, lights, cam, grad_image, aux_t, aux_sl
         dd_nxt = [dd_s[k] + dd_in[k] for k in range(3)]
 
     # --- camera backward: d0 = target / |target| ---
-    do, dd = do_nxt, dd_nxt
-    dddot = d0[0] * dd[0] + d0[1] * dd[1] + d0[2] * dd[2]
-    dtg = [(dd[k] - d0[k] * dddot) * inv_len for k in range(3)]
-    for k in range(3):
-        add(row_cam + k, cx * dtg[k])
-        add(row_cam + 3 + k, cy * dtg[k])
-        add(row_cam + 6 + k, dtg[k])
-        add(row_cam + 9 + k, do[k])
-    dcx = dtg[0] * cam[0] + dtg[1] * cam[1] + dtg[2] * cam[2]
-    dcy = dtg[0] * cam[3] + dtg[1] * cam[4] + dtg[2] * cam[5]
-    add(row_cam + 12, gxf * dcx)
-    add(row_cam + 13, gyf * dcy)
+    for r, value in enumerate(_camera_rows(ray, cam, do_nxt, dd_nxt)):
+        add(row_cam + r, value)
 
     vec = torch.zeros(total, dtype=torch.float32, device=dev)
     keys = sorted(contrib)
@@ -442,6 +484,33 @@ def _check_bwd_args(tables, grad_image, aux, rows, width, n_lights, bounces):
                              f"expected {shape}")
 
 
+# Where the kernel sums the gradient rows (``csrc/render_bwd.cu``): by warp
+# reductions only, with the light rows in per-thread columns of shared
+# memory, or with every non-camera row in those columns.
+BWD_PLACEMENTS = ("warp", "light_columns", "columns")
+
+
+def bwd_plan(width: int, rows: int, n_obj: int, n_lights: int, bounces: int):
+    """(placement, blocks, floats of scratch) of the kernel's launch for
+    these arguments on the current CUDA device, as the launcher's plan
+    picks them: the first placement of columns, light_columns, warp that
+    fits in shared memory with 256 threads resident per SM, and one
+    resident wave of blocks. Planned once per device and shape."""
+    return _plan(torch.cuda.current_device(), width, rows, n_obj, n_lights, bounces)
+
+
+@functools.lru_cache(maxsize=64)
+def _plan(device_index: int, width, rows, n_obj, n_lights, bounces):
+    lib = _build.load("render_bwd")
+    out = (ctypes.c_longlong * 3)()
+    with torch.cuda.device(device_index):
+        rc = lib.trt_render_bwd_plan(width, rows, n_obj, n_lights, bounces, out)
+    if rc != 0:
+        raise RuntimeError(f"render_bwd: no launch for this frame: CUDA error "
+                           f"{rc} ({_build.error_string('render_bwd', rc)})")
+    return BWD_PLACEMENTS[out[0]], int(out[1]), int(out[2])
+
+
 def render_bwd(coefs, colors, refl, lights, cam, grad_image, aux_t, aux_slot, aux_occ,
                *, width: int, height: int, rows: int, n_lights: int,
                bounces: int) -> torch.Tensor:
@@ -450,10 +519,12 @@ def render_bwd(coefs, colors, refl, lights, cam, grad_image, aux_t, aux_slot, au
     [row0, row0 + rows), from the aux of ``render_fwd(..., save_aux=True)``.
 
     CUDA tensors launch the kernel of ``csrc/render_bwd.cu`` on the current
-    stream (and count the launch in ``render_bwd.launches``); CPU tensors
-    run ``render_bwd_plain``. Tensors on any other device raise. The kernel
+    stream (and count the launch in ``render_bwd.launches`` and in
+    ``render_bwd.launches_by_placement``); CPU tensors run
+    ``render_bwd_plain``. Tensors on any other device raise. The kernel
     sums each row over pixels in a fixed order (no atomics), so a call
-    repeated on the same inputs gives the same bits.
+    repeated on the same inputs gives the same bits. The placement of the
+    gradient rows is ``bwd_plan``'s.
     """
     tables = (coefs, colors, refl, lights, cam)
     aux = (aux_t, aux_slot, aux_occ)
@@ -466,22 +537,26 @@ def render_bwd(coefs, colors, refl, lights, cam, grad_image, aux_t, aux_slot, au
         raise ValueError(f"render_bwd: no kernel for device {device}")
 
     n_obj = coefs.shape[0]
-    out = torch.zeros(acc_layout(n_obj, n_lights)[-1], dtype=torch.float32, device=device)
+    n_rows = acc_layout(n_obj, n_lights)[-1]
     if rows * width == 0:
-        return out
+        return torch.zeros(n_rows, dtype=torch.float32, device=device)
+    out = torch.empty(n_rows, dtype=torch.float32, device=device)  # the kernel writes every row
     lib = _build.load("render_bwd")
-    n_scratch = lib.trt_render_bwd_scratch(width, rows, n_obj, n_lights)
-    scratch = torch.empty(max(n_scratch, 1), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
+        placement, blocks, n_scratch = bwd_plan(width, rows, n_obj, n_lights, bounces)
+        scratch = torch.empty(max(n_scratch, 1), dtype=torch.float32, device=device)
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.trt_render_bwd(
             *(t.data_ptr() for t in (*tables, grad_image, *aux, scratch, out)),
-            width, height, rows, n_obj, n_lights, bounces, stream)
+            width, height, rows, n_obj, n_lights, bounces,
+            BWD_PLACEMENTS.index(placement), blocks, stream)
     if rc != 0:
-        raise RuntimeError(f"render_bwd: kernel launch failed: CUDA error {rc} "
+        raise RuntimeError(f"render_bwd: kernel launch ({placement}) failed: CUDA error {rc} "
                            f"({_build.error_string('render_bwd', rc)})")
     render_bwd.launches += 1
+    render_bwd.launches_by_placement[placement] += 1
     return out
 
 
 render_bwd.launches = 0
+render_bwd.launches_by_placement = dict.fromkeys(BWD_PLACEMENTS, 0)

@@ -104,6 +104,44 @@ def _ray_coeffs(coef, o_pows, d_pows, one, m_start=0, k_max=3):
     return out
 
 
+def _eye_coeffs(coef, eye_pows, one):
+    """[q_0, ..., q_19]: F(e + t d) = sum_k t^k sum_{deg n = k} q_n d^(p_n)
+    for the eye e (cached powers ``eye_pows``), q_n = sum over monomials
+    m with p_m >= p_n of coef_m w(p_m, p_n) e^(p_m - p_n): stage 0's ray
+    expansion with the eye hoisted out of the pixels (the kernel's
+    ``eye_coeffs``; ``tests/test_torch_render.py`` holds it to the binomial
+    expansion in f64)."""
+    out = []
+    for pn in MONOMIAL_POWERS:
+        acc = None
+        for m, pm in enumerate(MONOMIAL_POWERS):
+            if any(j > p for j, p in zip(pn, pm)):
+                continue
+            term = _prod(eye_pows, tuple(p - j for p, j in zip(pm, pn)), one)
+            w = math.prod(math.comb(p, j) for p, j in zip(pm, pn))
+            if w != 1:
+                term = term * float(w)
+            contrib = coef[m] * term
+            acc = contrib if acc is None else acc + contrib
+        out.append(acc)
+    return out
+
+
+def _eye_ray_coeffs(q, d_pows, one, m_start=0, k_max=3):
+    """[t_kmax, ..., t0] of a ray from the eye, from ``_eye_coeffs`` and the
+    direction's cached powers."""
+    out = []
+    for k in range(k_max, -1, -1):
+        acc = None
+        for n in range(m_start, N_COEFS):
+            if sum(MONOMIAL_POWERS[n]) != k:
+                continue
+            t = q[n] * _prod(d_pows, MONOMIAL_POWERS[n], one)
+            acc = t if acc is None else acc + t
+        out.append(acc)
+    return out
+
+
 def _eval_F_and_grad(coef, cache, m_start=0, need_mag=True, need_grad=True):
     """F, sum |terms| and dF at the cached point powers."""
     f = mag = None
@@ -243,11 +281,15 @@ def _stable_quad_roots(t2, t1, t0):
     return disc, lo, hi
 
 
-def _solve_object(coef, o, d, polish_iters, screen_iters):
+def _solve_object(coef, o, d, polish_iters, screen_iters, eyeq=None):
     """Nearest reference-semantics root for one cubic slot (Pallas
-    ``_solve_object``, :263-405)."""
+    ``_solve_object``, :263-405); ``eyeq``: the slot's ``_eye_coeffs`` when
+    the rays leave the eye (stage 0)."""
     one = torch.ones_like(d[0])
-    t3, t2, t1, t0 = _ray_coeffs(coef, _powers3(*o), _powers3(*d), one)
+    if eyeq is None:
+        t3, t2, t1, t0 = _ray_coeffs(coef, _powers3(*o), _powers3(*d), one)
+    else:
+        t3, t2, t1, t0 = _eye_ray_coeffs(eyeq, _powers3(*d), one)
 
     def screen(t):
         seed = t
@@ -285,13 +327,16 @@ def _solve_object(coef, o, d, polish_iters, screen_iters):
                                    torch.where(is_lin, lin_root, -1.0)))
 
 
-def _solve_quadric(coef, o, d, polish_iters):
+def _solve_quadric(coef, o, d, polish_iters, eyeq=None):
     """Root for a slot whose cubic coefficients are all zero (Pallas
     ``_solve_quadric``, :408-453): stable closed form, then at most 2
-    polish steps on the selected root."""
+    polish steps on the selected root; ``eyeq`` as in ``_solve_object``."""
     one = torch.ones_like(d[0])
-    t2, t1, t0 = _ray_coeffs(coef, _powers3(*o), _powers3(*d), one,
-                             m_start=QUAD_START, k_max=2)
+    if eyeq is None:
+        t2, t1, t0 = _ray_coeffs(coef, _powers3(*o), _powers3(*d), one,
+                                 m_start=QUAD_START, k_max=2)
+    else:
+        t2, t1, t0 = _eye_ray_coeffs(eyeq, _powers3(*d), one, m_start=QUAD_START, k_max=2)
     is_quad = torch.abs(t2) > EPS
     is_lin = torch.abs(t1) > EPS
     disc, lo, hi = _stable_quad_roots(t2, t1, t0)
@@ -437,19 +482,21 @@ def _shade(tab: _Tables, col, p, n, want_bits=False):
     return [torch.clamp(a, max=1.0) for a in acc], bits
 
 
-def _trace_and_shade(tab: _Tables, o, d, want_bits=False):
+def _trace_and_shade(tab: _Tables, o, d, want_bits=False, eyeq=None):
     """Nearest hit over all slots, then gather, normal and shading ->
     (hit, slot, t, refl, point, normal, lit, occlusion bits); slot is -1
-    and t is 0 on a miss."""
+    and t is 0 on a miss. ``eyeq``: per slot its ``_eye_coeffs`` when ``o``
+    is the eye (stage 0)."""
     dx = d[0]
     best_t = torch.full_like(dx, MAX_T)
     best_idx = torch.full_like(dx, -1, dtype=torch.int64)
     best_orig = torch.full_like(dx, 2**30, dtype=torch.int64)
     for i, coef in enumerate(tab.coefs):
+        q = None if eyeq is None else eyeq[i]
         if i < tab.n_cubic:
-            t = _solve_object(coef, o, d, tab.polish_iters, tab.screen_iters)
+            t = _solve_object(coef, o, d, tab.polish_iters, tab.screen_iters, q)
         else:
-            t = _solve_quadric(coef, o, d, tab.polish_iters)
+            t = _solve_quadric(coef, o, d, tab.polish_iters, q)
         orig = tab.orig_index[i]
         better = ((t >= EPS) & (t < MAX_T)
                   & ((t < best_t) | ((t == best_t) & (orig < best_orig))))
@@ -479,7 +526,9 @@ def render_fwd_plain(coefs, orig_index, colors, refl, lights, dir_table, posdef,
     """Plain PyTorch version of the kernel: [rows, width, 3] f32 for image
     rows [row0, row0 + rows), row0 = cam[17]; with ``save_aux`` also the
     per-stage (aux_t, aux_slot, aux_occ), each [bounces + 1, rows, width]
-    (see ``render_fwd``)."""
+    (see ``render_fwd``). As in the kernel, stage 0 forms each slot's
+    t-polynomial from the eye-hoisted coefficients (``_eye_coeffs``), the
+    bounce stages from the binomial expansion."""
     dev = coefs.device
     tab = _Tables(
         coefs=[list(row.unbind(0)) for row in coefs.unbind(0)],
@@ -514,7 +563,9 @@ def render_fwd_plain(coefs, orig_index, colors, refl, lights, dir_table, posdef,
     o = (cam[9], cam[10], cam[11])
     bg = (cam[14], cam[15], cam[16])
 
-    hit, slot, t, refl_c, point, normal, lit, bits = _trace_and_shade(tab, o, d, save_aux)
+    eye_pows = _powers3(*o)
+    eyeq = [_eye_coeffs(coef, eye_pows, torch.ones((), device=dev)) for coef in tab.coefs]
+    hit, slot, t, refl_c, point, normal, lit, bits = _trace_and_shade(tab, o, d, save_aux, eyeq)
     result = [torch.where(hit, lit[k], bg[k]) for k in range(3)]
     # per-stage aux (Pallas kernel :1025-1029): t and the permuted slot of
     # the hit (0 and -1 on a miss), and the occlusion bits
@@ -576,6 +627,19 @@ def _check_tables(tables):
                              f"expected {shape}")
 
 
+# The kernel's instantiations (``trt_render_fwd``'s ``variant``): the main
+# path's iteration counts (polish 3, screen 3, shadow 1) compiled in, without
+# and with a reflection chain, and the generic one with runtime counts.
+FWD_VARIANTS = ("main", "main_chain", "generic")
+
+
+def fwd_variant(polish_iters: int, screen_iters: int, shadow_iters: int, bounces: int) -> str:
+    """The instantiation of ``csrc/render_fwd.cu`` that ``render_fwd`` launches."""
+    if (polish_iters, screen_iters, shadow_iters) != (3, 3, 1):
+        return "generic"
+    return "main" if bounces == 0 else "main_chain"
+
+
 def render_fwd(coefs, orig_index, colors, refl, lights, dir_table, posdef, cam,
                *, width: int, height: int, rows: int, n_cubic: int,
                polish_iters: int, shadow_iters: int, screen_iters: int,
@@ -583,8 +647,9 @@ def render_fwd(coefs, orig_index, colors, refl, lights, dir_table, posdef, cam,
     """Render image rows [row0, row0 + rows) -> [rows, width, 3] f32.
 
     CUDA tables launch the kernel of ``csrc/render_fwd.cu`` on the current
-    stream (and count the launch in ``render_fwd.launches``); CPU tables run
-    ``render_fwd_plain``. Tables on any other device raise.
+    stream (and count the launch in ``render_fwd.launches`` and in
+    ``render_fwd.launches_by_variant``); CPU tables run ``render_fwd_plain``.
+    Tables on any other device raise. The instantiation is ``fwd_variant``'s.
 
     ``save_aux`` (the Pallas kernel's ``save_aux=True``, for the backward)
     also returns, per chain stage s = 0..bounces, the data that fixes the
@@ -628,6 +693,7 @@ def render_fwd(coefs, orig_index, colors, refl, lights, dir_table, posdef, cam,
            torch.empty(aux_shape, dtype=torch.int32, device=device)) if save_aux else ()
     if out.numel() == 0:
         return (out, *aux) if save_aux else out
+    variant = fwd_variant(polish_iters, screen_iters, shadow_iters, bounces)
     lib = _build.load("render_fwd")
     aux_ptrs = [t.data_ptr() for t in aux] if save_aux else [None] * 3
     with torch.cuda.device(device):
@@ -635,12 +701,15 @@ def render_fwd(coefs, orig_index, colors, refl, lights, dir_table, posdef, cam,
         rc = lib.trt_render_fwd(
             *(t.data_ptr() for t in tables), out.data_ptr(), *aux_ptrs,
             width, height, rows, n_obj, n_cubic, n_lights,
-            polish_iters, shadow_iters, screen_iters, bounces, stream)
+            polish_iters, shadow_iters, screen_iters, bounces,
+            FWD_VARIANTS.index(variant), stream)
     if rc != 0:
-        raise RuntimeError(f"render_fwd: kernel launch failed: CUDA error {rc} "
+        raise RuntimeError(f"render_fwd: kernel launch ({variant}) failed: CUDA error {rc} "
                            f"({_build.error_string('render_fwd', rc)})")
     render_fwd.launches += 1
+    render_fwd.launches_by_variant[variant] += 1
     return (out, *aux) if save_aux else out
 
 
 render_fwd.launches = 0
+render_fwd.launches_by_variant = dict.fromkeys(FWD_VARIANTS, 0)
