@@ -46,7 +46,30 @@ result line):
    ``render_fwd(save_aux=True)``, ``render_bwd`` alone, the whole fwd+bwd
    call, and ``render_bwd_plain`` once, each kernel beside its bound
    (counted from the timed frames' own aux); the backward alone on
-   20spheres and reflection_test beside its bound.
+   20spheres and reflection_test beside its bound;
+8a. the command line in-process: ``render scenes/dingdong.yml --backend
+   kernel --check`` (the counts set to 0 just before: one render_fwd launch,
+   of the main instantiation; the frame within dingdong's gate), then
+   ``bench scenes/dingdong.yml --frames 32`` (auto resolves to the kernel on
+   the card) with its FPS line;
+8b. the plain PyTorch pipeline on the card: FAST (f32, polish 3, one shot)
+   on all 8 scenes at full size against bench_goldens (at most 1% bad
+   pixels) and against K1's frame (at most 0.5%), with each frame's peak
+   device memory; GOLDEN (f64) on dingdong and reflection_test against the
+   goldens (at most 1%);
+8c. the gradient fallback: a 33-light and a 0-object scene built with the
+   port's builders through ``render_image_kernel`` and ``backward()``, the
+   counts set to 0 just before: one render_fwd launch (main), no
+   render_bwd; the gradients equal the pipeline's own autograd (rtol 1e-5
+   light_color, 1e-4 coefs; zero for the 0-object lights);
+8d. the pipeline's fwd+bwd on dingdong 1280x720 at pitch 5 against K2's
+   gradient from 7a under tests/test_pallas.py:174-181's rule, logged per
+   group over the frame; every group finite, and within the rule over the
+   pixels whose primary hit the two forwards find alike (the same object,
+   t and dF/dt within 1e-4 relative), weighted by the
+   cotangent of 7a;
+8e. the pipeline's times by CUDA events (FAST and GOLDEN forward, fwd+bwd,
+   the 33-light fallback's fwd+bwd) with the peak device memory of each.
 
 The last lines are the card's name and power limit, a {"kernels": [...]}
 line (each kernel's launches on the main path, its time, its plain
@@ -57,9 +80,12 @@ PyTorch call computes either function, so ``library_ms`` is null), and
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -69,6 +95,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 SCENES = ("dingdong", "monkey_saddle", "20spheres", "reflection_test",
           "quadratic", "cayley", "clebsch", "cubic")
 MAX_BAD_VS_PLAIN = 1e-3   # per frame, kernel vs its plain version
+MAX_BAD_PIPELINE = 0.01   # pipeline vs golden (tests/test_golden.py's limit)
+MAX_BAD_PIPELINE_VS_K1 = 0.005  # pipeline vs K1 (tests/test_torch_render.py's)
 OFF_POSE = ((0.0, 2.0, -3.0), 75.0, -12.0)
 TIMED_FRAMES = 32
 PLAIN_FRAMES = 3
@@ -388,6 +416,228 @@ def main() -> int:
             f"{bound:.4f} ms ({by}, {wk['ops'] / (scene.width * scene.height):.0f} ops/px), "
             f"share {bound / ms:.3f}, hit share "
             f"{float((frame[2][1][0] >= 0).float().mean()):.4f} ({smi})")
+    # --- 8a. the command line, in-process ---
+    from tpu_ray_tracer_torch import cli
+    from tpu_ray_tracer_torch.models import light as tlight
+    from tpu_ray_tracer_torch.models import surface as tsurface
+    from tpu_ray_tracer_torch.models.scene import Object
+
+    out_dir = os.path.join(REPO, "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    ding_yml = os.path.join(REPO, "scenes", "dingdong.yml")
+    cli_npy = os.path.join(out_dir, "dingdong_cli.npy")
+    zero_counts()
+    rc = cli.main(["render", ding_yml, "--backend", "kernel", "--check", "-o", cli_npy])
+    torch.cuda.synchronize()
+    cli_launches = render_fwd.launches
+    cli_variants = {k: v for k, v in render_fwd.launches_by_variant.items() if v}
+    if rc != 0 or cli_launches != 1 or cli_variants != {"main": 1}:
+        raise RuntimeError(f"cli render: rc {rc}, render_fwd launches {cli_variants}; "
+                           "expected one of the main instantiation")
+    frac = bad_pixel_fraction(np.load(cli_npy), golden("dingdong"))
+    log(f"[cli] render dingdong --backend kernel: launches {cli_variants}, bad-px vs golden "
+        f"{frac:.6f} (gate {PARITY_GATES['dingdong']})")
+    if frac > PARITY_GATES["dingdong"]:
+        raise RuntimeError("cli render: dingdong over its parity gate")
+    buf = io.StringIO()
+    before = render_fwd.launches
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["bench", ding_yml, "--frames", str(TIMED_FRAMES)])
+    torch.cuda.synchronize()
+    for line in buf.getvalue().splitlines():
+        log(f"[cli] {line}")
+    fps = re.search(r"^FPS: \d+\.\d{4}, last render time: (\d+\.\d{4}) ms$", buf.getvalue(),
+                    re.M)
+    if (rc != 0 or fps is None or "backend kernel" not in buf.getvalue()
+            or render_fwd.launches - before != TIMED_FRAMES + 1):
+        raise RuntimeError(f"cli bench: rc {rc}, {render_fwd.launches - before} launches, "
+                           "expected the kernel backend's FPS line")
+    log(f"[cli] bench: {render_fwd.launches - before} render_fwd launches (1 warm-up + "
+        f"{TIMED_FRAMES}) ({smi})")
+
+    # --- 8b. the plain pipeline on the card against the goldens and K1 ---
+    def peak_of(fn):
+        """fn()'s result and the peak device memory (GiB) while it ran."""
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated() / 2**30
+
+    pipeline_peaks = {}
+    for name, scene in scenes.items():
+        with torch.no_grad():
+            img, peak = peak_of(lambda: ttt.render_image(scene).cpu().numpy())
+            k1 = ttt.render_image_kernel(scene).cpu().numpy()
+        pipeline_peaks[name] = peak
+        if img.shape != (scene.height, scene.width, 3) or not np.isfinite(img).all():
+            raise RuntimeError(f"pipeline {name}: bad frame")
+        frac_g, frac_k = bad_pixel_fraction(img, golden(name)), bad_pixel_fraction(img, k1)
+        log(f"[pipeline] FAST {name} {scene.width}x{scene.height}: bad-px vs golden "
+            f"{frac_g:.6f} (limit {MAX_BAD_PIPELINE}), vs K1 {frac_k:.6f} (limit "
+            f"{MAX_BAD_PIPELINE_VS_K1}), peak {peak:.3f} GiB")
+        if frac_g > MAX_BAD_PIPELINE or frac_k > MAX_BAD_PIPELINE_VS_K1:
+            raise RuntimeError(f"pipeline {name}: over its limit")
+    for name in ("dingdong", "reflection_test"):
+        scene = scenes[name]
+        with torch.no_grad():
+            img, peak = peak_of(
+                lambda: ttt.render_image(scene, config=ttt.GOLDEN_CONFIG).cpu().numpy())
+        frac_g = bad_pixel_fraction(img, golden(name))
+        pipeline_peaks[f"{name} GOLDEN"] = peak
+        log(f"[pipeline] GOLDEN f64 {name} {scene.width}x{scene.height}: bad-px vs golden "
+            f"{frac_g:.6f} (limit {MAX_BAD_PIPELINE}), peak {peak:.3f} GiB")
+        if not np.isfinite(img).all() or frac_g > MAX_BAD_PIPELINE:
+            raise RuntimeError(f"pipeline GOLDEN {name}: over its limit")
+
+    # --- 8c. the gradient fallback (> 31 lights, no object) ---
+    fan = [Object(tsurface.sphere((0.0, 0.0, 6.0), 2.0), 0.0, np.float32([0.8, 0.3, 0.2])),
+           Object(tsurface.plane((0.0, -3.0, 0.0), (0.0, 1.0, 0.0)), 0.0,
+                  np.float32([0.2, 0.6, 0.9]))]
+    fan_lights = [tlight.directional(
+        0.08, (np.cos(2 * np.pi * i / 33) * 0.5, -1.0, np.sin(2 * np.pi * i / 33) * 0.5 + 0.3),
+        (1.0, 1.0 - 0.5 * (i % 3) / 2.0, 0.5 + 0.5 * (i % 2))) for i in range(33)]
+    many = ttt.build_scene(640, 480, 60.0, fan, fan_lights, bg_color=(0.1, 0.1, 0.1))
+    empty = ttt.build_scene(640, 480, 60.0, [], fan_lights[:1], bg_color=(0.3, 0.6, 0.9))
+    fallback_config = ttt.RenderConfig("float32", 3, 0, chunk_px=None)
+
+    def fallback_grads(scene, fields, fallback=True):
+        leaves = {f: getattr(scene, f).detach().clone().requires_grad_() for f in fields}
+        s = dataclasses.replace(scene, **leaves)
+        image = (ttt.render_image_kernel(s) if fallback
+                 else ttt.render_image(s, None, fallback_config))
+        image.sum().backward()
+        # a leaf the frame does not read (a light, with no object) gets no
+        # gradient from autograd: zero
+        return {f: torch.zeros_like(leaf) if leaf.grad is None else leaf.grad
+                for f, leaf in leaves.items()}
+
+    fallback_launches = 0
+    for label, scene, fields in (("33 lights", many, ("light_color", "coefs")),
+                                 ("0 objects", empty, ("light_color", "bg_color"))):
+        zero_counts()
+        got = fallback_grads(scene, fields)
+        torch.cuda.synchronize()
+        launches = {"render_fwd": render_fwd.launches, "render_bwd": render_bwd.launches}
+        variants = {k: v for k, v in render_fwd.launches_by_variant.items() if v}
+        fallback_launches += render_fwd.launches
+        ref = fallback_grads(scene, fields, fallback=False)
+        log(f"[fallback] {label} 640x480 loss.backward(): launches {launches} {variants}")
+        if launches != {"render_fwd": 1, "render_bwd": 0} or variants != {"main": 1}:
+            raise RuntimeError(f"fallback {label}: expected one render_fwd (main), no render_bwd")
+        for f in fields:
+            g, r = got[f], ref[f]
+            rtol = 1e-4 if f == "coefs" else 1e-5
+            atol = 1e-6 * max(1.0, float(r.abs().max())) if f == "coefs" else 1e-7
+            err = float((g - r).abs().max())
+            log(f"[fallback]   {f}: max|grad| {float(g.abs().max()):.6g}, max|diff| vs the "
+                f"pipeline's autograd {err:.3g}")
+            if not torch.isfinite(g).all() or not torch.allclose(g, r, rtol=rtol, atol=atol):
+                raise RuntimeError(f"fallback {label} {f}: gradient differs")
+        if label == "0 objects" and bool(got["light_color"].any()):
+            raise RuntimeError("fallback 0 objects: nonzero light gradient")
+        if label == "33 lights" and not bool(got["light_color"].any()):
+            raise RuntimeError("fallback 33 lights: zero light gradient")
+
+    # --- 8d. the pipeline's gradient against K2's (dingdong 1280x720, pitch 5) ---
+    from tpu_ray_tracer_torch.ops import camera as camera_ops
+    from tpu_ray_tracer_torch.ops.poly import poly_gradient
+    from tpu_ray_tracer_torch.render import pipeline
+
+    pose = camera(pitch=5.0)
+    # The pixels whose primary hit both forwards find alike: the same
+    # object, t within 1e-4 relative, and the slope dF/dt = grad F . d that
+    # the implicit-function backward divides by within 1e-4 relative. Near a
+    # double root of dingdong's cubic the f32 root is ill-conditioned: the
+    # two forwards' roots differ, and 1/slope amplifies it into the gradient.
+    tables, kw = pack_frame(ding, pose, 0, ding.height)
+    _, k_t, k_slot, _ = render_fwd(*tables, **kw, save_aux=True)
+    k_t, k_slot = k_t[0].flatten(), k_slot[0].flatten().long()
+    k_idx = torch.where(k_slot >= 0, tables[1].long()[k_slot.clamp(min=0)], -1)
+    with torch.no_grad():
+        s32 = ding.astype(torch.float32)
+        rot, eye = camera_ops.camera_frame(pose)
+        dirs = camera_ops.pixel_directions(rot, ding.width, ding.height, ding.aspect_ratio,
+                                           s32.tan_half_fov).reshape(-1, 3)
+        hit = pipeline.trace_and_shade(s32, eye.expand(dirs.shape), dirs, 3)
+        p_t = ((hit.point - eye) * dirs).sum(-1)
+        p_idx = torch.where(hit.hit, hit.idx, -1)
+        sel = s32.coefs[p_idx.clamp(min=0)]
+        p_slope = (poly_gradient(sel, hit.point) * dirs).sum(-1)
+        k_slope = (poly_gradient(sel, eye + k_t[:, None] * dirs) * dirs).sum(-1)
+    same = (p_idx == k_idx) & ((p_idx < 0) | (((p_t - k_t).abs() <= 1e-4 * k_t.abs())
+                                             & ((p_slope - k_slope).abs()
+                                                <= 1e-4 * k_slope.abs())))
+    same = same.reshape(ding.height, ding.width, 1)
+    n_diff = int((~same).sum())
+    log(f"[pipeline-grad] primary hits: the pipeline and K1 differ (object, t beyond 1e-4 "
+        f"or dF/dt beyond 1e-4 relative) on {n_diff} of {n_px} pixels")
+
+    def grads_for(render, weights):
+        g_scene, g_cam, g_leaves = grad_leaves(ding, pose)
+        (weights * render(g_scene, g_cam)).sum().backward()
+        return {n: torch.zeros_like(leaf) if leaf.grad is None else leaf.grad
+                for n, leaf in g_leaves.items() if n != "reflection"}
+
+    def group_errors(got, ref):
+        out = {}
+        for n in got:
+            scale = max(float(ref[n].abs().max()), 1e-6)
+            out[n] = (float((got[n] - ref[n]).abs().max()) / scale,
+                      2e-3 if float(ref[n].abs().max()) > 1.0 else 2e-2)
+        return out
+
+    pipe_render = lambda sc, c: ttt.render_image(sc, c)  # noqa: E731
+    pipe_full = grads_for(pipe_render, w)
+    if not all(torch.isfinite(g).all() for g in pipe_full.values()):
+        raise RuntimeError("pipeline gradient: non-finite values")
+    full_errors = group_errors(pipe_full, grads_first)
+    same_errors = group_errors(grads_for(pipe_render, w * same),
+                               grads_for(ttt.render_image_kernel, w * same))
+    for n, (rel, tol) in full_errors.items():
+        rel_same = same_errors[n][0]
+        log(f"[pipeline-grad] {n}: relerr vs K2 {rel:.3e} over the frame"
+            f"{' (over the limit: ROADMAP Queue 3)' if rel >= tol else ''}, {rel_same:.3e} "
+            f"where both forwards hit alike (limit {tol:g})")
+        if rel_same >= tol:
+            raise RuntimeError(f"pipeline gradient {n}: relerr {rel_same} >= {tol} against K2 "
+                               "where both forwards hit alike")
+
+    # --- 8e. the pipeline's times and peak memory (dingdong 1280x720) ---
+    pipe_frames = 8
+    with torch.no_grad():
+        ttt.render_image(ding, cams[0])
+        fast_ms, fast_peak = peak_of(lambda: timed_ms(
+            lambda k: ttt.render_image(ding, cams[k]), pipe_frames))
+        golden_ms, golden_peak = peak_of(lambda: timed_ms(
+            lambda k: ttt.render_image(ding, cams[k], ttt.GOLDEN_CONFIG), pipe_frames))
+
+    def pipe_fwd_bwd(k):
+        (w * ttt.render_image(t_scene, t_cams[k])).sum().backward()
+
+    pipe_fwd_bwd(0)
+    fwd_bwd_pipe_ms, fwd_bwd_peak = peak_of(lambda: timed_ms(pipe_fwd_bwd, pipe_frames))
+    fb_leaf = many.light_color.detach().clone().requires_grad_()
+    fb_scene = dataclasses.replace(many, light_color=fb_leaf, coefs=many.coefs.clone()
+                                   .requires_grad_())
+    fb_cams = [camera(yaw=y) for y in yaws[:pipe_frames]]
+
+    def fallback_step(k):
+        ttt.render_image_kernel(fb_scene, fb_cams[k]).sum().backward()
+
+    fallback_step(0)
+    fallback_ms, fallback_peak = peak_of(lambda: timed_ms(fallback_step, pipe_frames))
+    for what, ms, peak, px in (
+            ("dingdong 1280x720 pipeline FAST (f32) forward", fast_ms, fast_peak, n_px),
+            ("dingdong 1280x720 pipeline GOLDEN (f64) forward", golden_ms, golden_peak, n_px),
+            ("dingdong 1280x720 pipeline fwd+bwd", fwd_bwd_pipe_ms, fwd_bwd_peak, n_px),
+            ("33-light 640x480 fallback fwd+bwd (K1 + pipeline backward)", fallback_ms,
+             fallback_peak, 640 * 480)):
+        log(f"[time] {what}: {ms:.4f} ms/frame {px / ms / 1e3:.2f} Mrays/s, peak "
+            f"{peak:.3f} GiB ({smi})")
+    log(f"[memory] FAST/GOLDEN one-frame peaks (GiB): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in pipeline_peaks.items()) + f" ({smi})")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     print(smi)
@@ -396,8 +646,10 @@ def main() -> int:
         "route": "cuda",
         "source": "tpu_ray_tracer_torch/csrc/render_fwd.cu",
         "replaces": "tpu_ray_tracer/render/pallas_backend.py:978",
-        "launches": main_launches + grad_launches["render_fwd"],
-        "launches_by_path": {"forward": main_launches, "gradient": grad_launches["render_fwd"]},
+        "launches": (main_launches + grad_launches["render_fwd"] + cli_launches
+                     + fallback_launches),
+        "launches_by_path": {"forward": main_launches, "gradient": grad_launches["render_fwd"],
+                             "cli": cli_launches, "fallback": fallback_launches},
         "max_abs_err": worst_abs,
         "worst_bad_px_vs_plain": worst_frac,
         "ms": kernel_ms,

@@ -397,3 +397,96 @@ def test_bwd_ragged_grid(cuda):
     assert (1000 * 37) % (blocks * 64) != 0
     assert placement == "columns"
     _kernel_vs_plain_bwd(args, bkw, "1000x37")
+
+
+# --- the plain pipeline, the gradient fallback and the CLI on the card ---
+
+@pytest.mark.parametrize("name", SCENES)
+def test_pipeline_on_card_matches_cpu(cuda, name):
+    """The FAST pipeline on the card against the same call on the CPU: at
+    most 1e-3 of the pixels differ by more than 2/255 (the card's math
+    library rounds cos, acos and pow in other last bits)."""
+    gpu = ttt.render_image(_scene(name, cuda))
+    assert gpu.device.type == "cuda"
+    cpu = ttt.render_image(_scene(name, "cpu"))
+    assert bad_pixel_fraction(gpu.cpu().numpy(), cpu.numpy()) <= MAX_BAD_VS_PLAIN
+
+
+def test_ray_poly_coeffs_ignores_tf32(cuda):
+    """The monomial contraction is products and sums: with TF32 matmuls
+    allowed (which visibly changes a matmul of the same basis) it gives the
+    same bits as without."""
+    from tpu_ray_tracer_torch.ops.poly import ray_basis, ray_poly_coeffs
+
+    gen = torch.Generator(device="cpu").manual_seed(20261016)
+    coefs = torch.randn(7, 20, generator=gen).to(cuda)
+    origin = torch.randn(4096, 3, generator=gen).to(cuda)
+    d = torch.nn.functional.normalize(torch.randn(4096, 3, generator=gen), dim=-1).to(cuda)
+    tf32, prec = torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision()
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.set_float32_matmul_precision("highest")
+        strict = ray_poly_coeffs(coefs, origin, d)
+        mm_strict = ray_basis(origin, d)[1] @ coefs.T
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.set_float32_matmul_precision("high")
+        loose = ray_poly_coeffs(coefs, origin, d)
+        mm_loose = ray_basis(origin, d)[1] @ coefs.T
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.set_float32_matmul_precision(prec)
+    assert not torch.equal(mm_strict, mm_loose)  # the switch is live
+    for a, b in zip(strict, loose):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", ["33_lights", "no_objects"])
+def test_fallback_gradient_launches(cuda, case):
+    """A gradient the fused backward cannot encode: one render_fwd launch
+    (the main instantiation, no aux), no render_bwd, and the gradient of
+    the pipeline's own autograd on the card."""
+    if case == "33_lights":
+        scene = _many_lights_scene(33, cuda, 48, 32)
+    else:
+        scene = ttt.build_scene(48, 32, 60.0, [], [tlight.directional(
+            1.0, (0.0, -1.0, 0.0), (1.0, 1.0, 1.0))], bg_color=(0.3, 0.6, 0.9), device=cuda)
+    light_color = scene.light_color.clone().requires_grad_()
+    scene = dataclasses.replace(scene, light_color=light_color)
+    f0, b0, m0 = render_fwd.launches, render_bwd.launches, render_fwd.launches_by_variant["main"]
+    ttt.render_image_kernel(scene).sum().backward()
+    torch.cuda.synchronize()
+    assert (render_fwd.launches - f0, render_bwd.launches - b0) == (1, 0)
+    assert render_fwd.launches_by_variant["main"] == m0 + 1
+    assert torch.isfinite(light_color.grad).all()
+    if case == "no_objects":  # the frame does not read the lights
+        assert not light_color.grad.any()
+        return
+    ref = light_color.detach().clone().requires_grad_()
+    config = ttt.RenderConfig("float32", 3, 0, chunk_px=None)
+    ttt.render_image(dataclasses.replace(scene, light_color=ref), None, config).sum().backward()
+    torch.testing.assert_close(light_color.grad, ref.grad, rtol=1e-5, atol=1e-7)
+
+
+def test_cli_render_kernel_launches_main_once(cuda, tmp_path):
+    """``render --backend kernel`` on the card: one render_fwd launch, of
+    the main instantiation, and a finite frame."""
+    from tpu_ray_tracer_torch.cli import main
+
+    out = tmp_path / "dingdong.npy"
+    before = dict(render_fwd.launches_by_variant)
+    assert main(["render", str(SCENE_DIR / "dingdong.yml"), "--backend", "kernel", "--size",
+                 "64", "48", "--check", "-o", str(out)]) == 0
+    torch.cuda.synchronize()
+    after = render_fwd.launches_by_variant
+    assert {k: after[k] - before[k] for k in after} == {"main": 1, "main_chain": 0,
+                                                        "generic": 0}
+    img = np.load(out)
+    assert img.shape == (48, 64, 3) and np.isfinite(img).all()
+
+
+def test_argmin_ties_on_card(cuda):
+    """torch.argmin on the card returns the first of tied minima, as the
+    pipeline's nearest-hit selection needs (reference strict-< scan)."""
+    t = torch.ones(100003, 20, device=cuda)
+    t[:, 7:] = 0.5
+    assert (torch.argmin(t, dim=-1) == 7).all()

@@ -186,25 +186,62 @@ def test_no_grad_path_saves_no_aux(monkeypatch):
     assert torch.equal(with_grad.detach(), no_grad)
 
 
+class _BwdSpy:
+    """Records every ``render_bwd`` call of the render entries."""
+
+    def __init__(self, monkeypatch):
+        self.calls = 0
+        real = kernel_backend.render_bwd
+
+        def spy(*args, **kw):
+            self.calls += 1
+            return real(*args, **kw)
+
+        monkeypatch.setattr(kernel_backend, "render_bwd", spy)
+
+
 @pytest.mark.parametrize("case", ["33_lights", "no_objects"])
 def test_gradient_outside_fused_domain_raises(monkeypatch, case):
     """Scenes the fused backward cannot encode (more than 31 lights, or no
-    object) render forward as always; asking for their gradient raises
-    before anything renders."""
+    object) take the pipeline fallback in ``render_image_kernel``: one
+    ``render_fwd`` without aux, no ``render_bwd``, and the gradient of the
+    plain pipeline. On 33 lights it equals ``jax.grad`` of the JAX
+    package's XLA pipeline with tests/test_degenerate.py:87-120's limits
+    (rtol 1e-5 light_color, 1e-4 coefs); with no object the light
+    gradient is finite and zero (:145-169). The row-block entry
+    ``render_rows_kernel`` stays forward-only for such scenes and raises,
+    naming ``render_image_kernel``."""
+    pose = ((0.0, 0.0, 0.0), 90.0, 0.0)
     if case == "33_lights":
-        tscene = to_torch(_scene_many_lights(n=33, width=24, height=8))
+        jscene = _scene_many_lights(n=33, width=32, height=16)
+        tscene, groups = to_torch(jscene), ("light_color", "coefs")
     else:
         tscene = ttt.build_scene(16, 8, 60.0, [], [tlight.directional(
             1.0, (0.0, -1.0, 0.0), (1.0, 1.0, 1.0))], bg_color=(0.3, 0.6, 0.9), device="cpu")
-    image = ttt.render_image_kernel(tscene)
-    assert image.shape == (8, tscene.width, 3) and torch.isfinite(image).all()
-    spy = _FwdSpy(monkeypatch)
-    s32, cam, _ = port_leaves(tscene, ((0.0, 0.0, 0.0), 90.0, 0.0), ("light_color",))
-    with pytest.raises(NotImplementedError, match="plain pipeline"):
-        ttt.render_image_kernel(s32, cam)
-    assert spy.calls == []
+        groups = ("light_color", "bg_color")
+    s32, cam, leaves = port_leaves(tscene, pose, groups)
     with torch.no_grad():
-        assert torch.equal(ttt.render_image_kernel(s32, cam), image)
+        image = ttt.render_image_kernel(s32, cam)
+    fwd, bwd = _FwdSpy(monkeypatch), _BwdSpy(monkeypatch)
+    out = ttt.render_image_kernel(s32, cam)
+    assert out.grad_fn is not None and torch.equal(out.detach(), image)
+    out.sum().backward()
+    assert fwd.calls == [False] and bwd.calls == 0
+    grads = {g: leaves[g].grad.numpy() for g in groups}
+    assert all(np.isfinite(g).all() for g in grads.values())
+    if case == "33_lights":
+        config = RenderConfig(geom_dtype="float32", polish_iters=3, bounces=0, chunk_px=None)
+        ref = jax_grads(jscene, pose, config, groups, np.ones((16, 32, 3)))
+        assert np.abs(grads["light_color"]).max() > 0
+        np.testing.assert_allclose(grads["light_color"], ref["light_color"], rtol=1e-5,
+                                   atol=1e-7)
+        np.testing.assert_allclose(grads["coefs"], ref["coefs"], rtol=1e-4,
+                                   atol=1e-6 * max(1.0, np.abs(ref["coefs"]).max()))
+    else:
+        np.testing.assert_array_equal(grads["light_color"], 0.0)
+        np.testing.assert_array_equal(grads["bg_color"], np.full(3, 16 * 8, np.float32))
+    with pytest.raises(NotImplementedError, match="render_image_kernel"):
+        render_rows_kernel(s32, cam, 0, 4)
 
 
 def test_row_block_gradients_sum_to_frame():

@@ -189,6 +189,6 @@ def static_bounce_count(scene: Scene) -> int:
     (src/update-cpu.cpp:98-101). Reads the reflection table on the host.
     """
     refl = scene.reflection
-    if refl.numel() == 0 or float(refl.max()) <= 1e-7:
+    if refl.numel() == 0 or float(refl.detach().max()) <= 1e-7:
         return 0
     return scene.max_reflections

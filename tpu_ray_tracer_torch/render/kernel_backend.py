@@ -19,6 +19,13 @@ carries back through the packing (the slot gather, the f32 casts and the
 camera frame) to the scene's and camera's own tensors, as ``jax.grad``
 carries them through ``jnp.take``, ``_pack_lights`` and ``_pack_camera``.
 
+The fused backward encodes a scene with at least one object and at most 31
+lights (the i32 occlusion mask). A gradient of any other scene goes through
+``PipelineGradRender``, the counterpart of ``_render_pallas_diff`` /
+``_diff_fwd`` / ``_diff_bwd`` (:2123-2155): one ``render_fwd`` launch
+without aux forward, and the backward recomputed through the plain pipeline
+(``render/pipeline.py``).
+
 The JAX package's scene statics are jit-static and its kernel is rebuilt
 per scene; here they are runtime arguments of one kernel build, and the
 light kinds are read by the kernel from column 0 of the light table.
@@ -26,6 +33,7 @@ light kinds are read by the kernel from column 0 of the light table.
 
 from __future__ import annotations
 
+import dataclasses
 import weakref
 
 import numpy as np
@@ -34,6 +42,7 @@ import torch
 from ..models.scene import Scene
 from ..models.surface import MONOMIAL_POWERS
 from ..ops import camera as camera_ops
+from . import pipeline
 from .bwd_kernel import render_bwd, split_grad
 from .fwd_kernel import MAX_AUX_LIGHTS, QUAD_START, render_fwd
 
@@ -255,15 +264,84 @@ class PackedRender(torch.autograd.Function):
                 None, grads["cam"], None)
 
 
+# The scene's and the camera's differentiable tensors, in the order
+# ``PipelineGradRender`` takes them.
+_SCENE_GRAD_FIELDS = ("coefs", "colors", "reflection", "light_p", "light_color", "bg_color",
+                      "tan_half_fov")
+_CAMERA_FIELDS = ("position", "yaw_deg", "pitch_deg")
+
+
+def _grad_tensors(scene: Scene, camera: camera_ops.Camera) -> tuple:
+    return (*(getattr(scene, f) for f in _SCENE_GRAD_FIELDS),
+            *(getattr(camera, f) for f in _CAMERA_FIELDS))
+
+
+def _with_tensors(scene: Scene, tensors) -> tuple:
+    """(scene, camera) with ``_grad_tensors``' tensors replaced."""
+    n = len(_SCENE_GRAD_FIELDS)
+    return (dataclasses.replace(scene, **dict(zip(_SCENE_GRAD_FIELDS, tensors[:n]))),
+            camera_ops.Camera(*tensors[n:]))
+
+
 def _wants_grad(scene: Scene, camera: camera_ops.Camera) -> bool:
     """Whether autograd would record the render: grad mode on and any
     differentiable scene or camera tensor requiring grad."""
-    if not torch.is_grad_enabled():
-        return False
-    tensors = (scene.coefs, scene.colors, scene.reflection, scene.light_p,
-               scene.light_color, scene.bg_color, scene.tan_half_fov,
-               camera.position, camera.yaw_deg, camera.pitch_deg)
-    return any(t.requires_grad for t in tensors)
+    return torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in _grad_tensors(scene, camera))
+
+
+def _fused_backward_encodes(scene: Scene) -> bool:
+    """At least one object and at most 31 lights (the i32 occlusion mask)."""
+    return scene.n_objects > 0 and scene.n_lights <= MAX_AUX_LIGHTS
+
+
+class PipelineGradRender(torch.autograd.Function):
+    """A full frame for a scene the fused backward cannot encode (more than
+    31 lights, or no object): the forward is one ``render_fwd`` launch
+    without aux, the backward recomputes the VJP through the plain pipeline
+    at ``RenderConfig("float32", polish_iters, bounces, chunk_px=None)``
+    under ``torch.enable_grad()`` (the counterpart of ``_diff_bwd``,
+    :2134-2152).
+
+    As in the JAX package, the pipeline's occlusion solves use the full
+    ``polish_iters`` while the kernel forward uses the (coarser)
+    ``shadow_iters``, so primal and gradient can disagree on occlusion
+    classification at penumbra-boundary pixels — acceptable because
+    occlusion is a non-differentiable boolean (detached in the pipeline)
+    and the disagreement set is the measure-zero root-selection boundary.
+
+    Inputs: the scene (its tensors are replaced by the next ones), the
+    render's keyword dict, then ``_grad_tensors``' 10 tensors. A requested
+    gradient that the frame does not depend on (a light's, with no object)
+    is zero.
+    """
+
+    @staticmethod
+    def forward(ctx, scene, kwargs, *tensors):
+        scene, camera = _with_tensors(scene, tensors)
+        tables, fwd_kwargs = pack_frame(scene, camera, 0, scene.height, **kwargs)
+        ctx.scene, ctx.kwargs = scene, fwd_kwargs
+        ctx.save_for_backward(*tensors)
+        return render_fwd(*tables, **fwd_kwargs)
+
+    @staticmethod
+    def backward(ctx, grad_image):
+        wanted = ctx.needs_input_grad[2:]
+        leaves = [t.detach().requires_grad_(w) for t, w in zip(ctx.saved_tensors, wanted)]
+        config = pipeline.RenderConfig("float32", ctx.kwargs["polish_iters"],
+                                       ctx.kwargs["bounces"], chunk_px=None)
+        with torch.enable_grad():
+            scene, camera = _with_tensors(ctx.scene, leaves)
+            image = pipeline._render_image(scene, camera, config)
+            inputs = [t for t in leaves if t.requires_grad]
+            grads = (torch.autograd.grad(image, inputs, grad_image, allow_unused=True)
+                     if image.requires_grad else [None] * len(inputs))
+        grads = iter(grads)
+        out = []
+        for t, w in zip(leaves, wanted):
+            g = next(grads) if w else None
+            out.append(torch.zeros_like(t) if w and g is None else g)
+        return (None, None, *out)
 
 
 def render_rows_kernel(scene: Scene, camera: camera_ops.Camera, row0: int, rows: int,
@@ -280,17 +358,18 @@ def render_rows_kernel(scene: Scene, camera: camera_ops.Camera, row0: int, rows:
     Differentiable when a scene or camera tensor requires grad (see
     ``PackedRender``); the gradients of row blocks sum to the frame's. The
     fused backward covers scenes with at least one object and at most 31
-    lights (the i32 occlusion mask); a gradient of any other scene raises
-    ``NotImplementedError``, while its forward renders as always.
+    lights; for any other scene this row-block form is forward-only, as
+    ``render_rows_pallas`` is (:2183-2190): a gradient raises
+    ``NotImplementedError``, and ``render_image_kernel`` gives it.
     """
     wants_grad = _wants_grad(scene, camera)
-    if wants_grad and not (scene.n_objects > 0 and scene.n_lights <= MAX_AUX_LIGHTS):
+    if wants_grad and not _fused_backward_encodes(scene):
         raise NotImplementedError(
             f"render_rows_kernel: no gradient for a scene with {scene.n_objects} objects "
             f"and {scene.n_lights} lights: the fused backward needs at least one object "
-            f"and at most {MAX_AUX_LIGHTS} lights; such gradients need the plain "
-            "pipeline (ROADMAP Queue 1 item 6, the JAX package's _diff_bwd fallback), "
-            "which is not ported yet")
+            f"and at most {MAX_AUX_LIGHTS} lights; render the full frame with "
+            "render_image_kernel, whose gradient recomputes such scenes through the "
+            "plain pipeline")
     tables, kwargs = pack_frame(scene, camera, row0, rows, polish_iters=polish_iters,
                                 bounces=bounces, shadow_iters=shadow_iters)
     if wants_grad:
@@ -302,8 +381,11 @@ def render_image_kernel(scene: Scene, camera: camera_ops.Camera | None = None,
                         polish_iters: int = 3, bounces: int | None = None,
                         shadow_iters: int | None = None) -> torch.Tensor:
     """Render a full frame -> [H, W, 3] f32 on the scene's device, row 0 at
-    the bottom: the counterpart of ``render_image_pallas``, differentiable
-    as ``render_rows_kernel`` is.
+    the bottom: the counterpart of ``render_image_pallas``.
+
+    Differentiable: with the fused backward (``PackedRender``) where it
+    encodes the scene, else through ``PipelineGradRender``, whose backward
+    recomputes the frame through the plain pipeline.
 
     ``camera`` defaults to the reference pose. ``shadow_iters`` sets the
     Newton steps of the shadow-occlusion solves, clamped to
@@ -311,6 +393,9 @@ def render_image_kernel(scene: Scene, camera: camera_ops.Camera | None = None,
     """
     if camera is None:
         camera = camera_ops.Camera.initial(torch.float32, scene.coefs.device)
+    if _wants_grad(scene, camera) and not _fused_backward_encodes(scene):
+        kwargs =dict(polish_iters=polish_iters, bounces=bounces, shadow_iters=shadow_iters)
+        return PipelineGradRender.apply(scene, kwargs, *_grad_tensors(scene, camera))
     return render_rows_kernel(scene, camera, 0, scene.height,
                               polish_iters=polish_iters, bounces=bounces,
                               shadow_iters=shadow_iters)
