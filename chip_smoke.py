@@ -69,7 +69,22 @@ result line):
    t and dF/dt within 1e-4 relative), weighted by the
    cotangent of 7a;
 8e. the pipeline's times by CUDA events (FAST and GOLDEN forward, fwd+bwd,
-   the 33-light fallback's fwd+bwd) with the peak device memory of each.
+   the 33-light fallback's fwd+bwd) with the peak device memory of each;
+9a. the fit's main path: ``fit scenes/dingdong.yml --steps 5`` in-process
+   (auto resolves to the kernel route; the counts set to 0 just before):
+   5 render_fwd launches with aux and 5 render_bwd, plus the one forward
+   of the target frame; the loss finite and falling; then the train step
+   alone timed by CUDA events beside 7e's fwd+bwd call;
+9b. the BASELINE.json inverse configuration: clebsch 800x600, coefs and
+   light colours perturbed by 0.6, 5 steps through the kernels and 3 with
+   the soft loss (tau 0.15) through the pipeline by row blocks; the loss
+   falls on both routes; each step's time and the peak device memory;
+9c. ``render_rays_soft`` at tau 1e-4 against the hard pipeline frame on
+   clebsch and quadratic at full size: under 2% of pixels apart by more
+   than 2/255 (tests/test_soft.py:36-59's rule);
+9d. checkpoint resume: 4 kernel-route fit steps on dingdong against 2, a
+   checkpoint and 2 resumed, bitwise equal parameters; a checkpoint without
+   its ``opt/...`` keys raises.
 
 The last lines are the card's name and power limit, a {"kernels": [...]}
 line (each kernel's launches on the main path, its time, its plain
@@ -101,6 +116,8 @@ OFF_POSE = ((0.0, 2.0, -3.0), 75.0, -12.0)
 TIMED_FRAMES = 32
 PLAIN_FRAMES = 3
 KERNELS = ("render_fwd", "render_bwd")
+FIT_STEPS = 5          # 9a: the CLI's fit on dingdong
+FIT_TIMED_STEPS = 8    # 9a: the train step timed alone
 DIFF_FIELDS = ("coefs", "colors", "reflection", "light_p", "light_color", "bg_color",
                "tan_half_fov")
 
@@ -177,7 +194,7 @@ def main() -> int:
 
     # --- 3. main path: dingdong 1280x720, reference pose ---
     def zero_counts():
-        render_fwd.launches = render_bwd.launches = 0
+        render_fwd.launches = render_fwd.launches_save_aux = render_bwd.launches = 0
         for counts in (render_fwd.launches_by_variant, render_bwd.launches_by_placement):
             for key in counts:
                 counts[key] = 0
@@ -638,6 +655,147 @@ def main() -> int:
             f"{peak:.3f} GiB ({smi})")
     log(f"[memory] FAST/GOLDEN one-frame peaks (GiB): "
         + ", ".join(f"{k} {v:.3f}" for k, v in pipeline_peaks.items()) + f" ({smi})")
+
+    # --- 9a. the fit's main path: the CLI's fit on dingdong 1280x720 ---
+    from tpu_ray_tracer_torch.diff import inverse
+    from tpu_ray_tracer_torch.diff.soft import render_rays_soft
+
+    t_fit = time.perf_counter()
+    buf = io.StringIO()
+    zero_counts()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["fit", ding_yml, "--steps", str(FIT_STEPS)])
+    torch.cuda.synchronize()
+    fit_launches = {"render_fwd": render_fwd.launches,
+                    "render_fwd_save_aux": render_fwd.launches_save_aux,
+                    "render_bwd": render_bwd.launches}
+    fit_detail = {k: v for k, v in {**render_fwd.launches_by_variant,
+                                    **render_bwd.launches_by_placement}.items() if v}
+    for line in buf.getvalue().splitlines():
+        log(f"[fit] {line}")
+    summary = re.search(r"^loss: (\S+) -> (\S+) over (\d+) steps$", buf.getvalue(), re.M)
+    logged = [float(x) for x in re.findall(r"^step \d+: loss (\S+)$", buf.getvalue(), re.M)]
+    log(f"[fit] dingdong 1280x720 fit --steps {FIT_STEPS} (auto -> kernel): launches "
+        f"{fit_launches} {fit_detail} (the target frame is the one render_fwd without aux)")
+    if rc != 0 or summary is None or int(summary[3]) != FIT_STEPS:
+        raise RuntimeError(f"fit: rc {rc}, no summary line for {FIT_STEPS} steps")
+    if fit_launches != {"render_fwd": FIT_STEPS + 1, "render_fwd_save_aux": FIT_STEPS,
+                        "render_bwd": FIT_STEPS}:
+        raise RuntimeError(f"fit: expected {FIT_STEPS} launches of each kernel with aux and "
+                           f"one target frame, got {fit_launches}")
+    logged += [float(summary[1]), float(summary[2])]
+    if not all(np.isfinite(logged)) or not float(summary[2]) < float(summary[1]):
+        raise RuntimeError(f"fit: the loss did not fall or is not finite: {logged}")
+
+    fit_config = ttt.RenderConfig("float32", polish_iters=2, chunk_px=None)
+
+    def fit_case(scene, fields, backend, soft_tau=None):
+        """A self-recovery problem as the CLI's fit builds it: the target at
+        the reference pose, the optimized fields perturbed by 0.6."""
+        with torch.no_grad():
+            target = ttt.render_image_kernel(scene, camera(), polish_iters=2, bounces=0)
+        problem = inverse.InverseProblem(
+            scene_template=cli._perturb_scene(scene, fields, 0.6), config=fit_config,
+            param_fields=tuple(fields), learning_rate=5e-2, backend=backend,
+            soft_tau=soft_tau)
+        return problem, target
+
+    def fit_steps(problem, target, steps):
+        """``steps`` train steps -> (losses, ms of each step by CUDA events,
+        peak device memory in GiB)."""
+        params = inverse.extract_params(problem.scene_template.astype(torch.float32),
+                                        problem.param_fields)
+        optimizer = problem.optimizer(params)
+        step = inverse.make_train_step(problem)
+        losses, times = [], []
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(steps):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            losses.append(step(params, optimizer, camera(), target))
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        return losses, times, torch.cuda.max_memory_allocated() / 2**30
+
+    ding_problem, ding_target = fit_case(ding, ["light_color"], "kernel")
+    losses, times, peak = fit_steps(ding_problem, ding_target, FIT_TIMED_STEPS)
+    fit_step_ms = float(np.median(times[1:]))
+    log(f"[time] dingdong 1280x720 kernel-route fit step (light_color): median "
+        f"{fit_step_ms:.4f} ms over steps 2-{FIT_TIMED_STEPS} (all {', '.join(f'{t:.4f}' for t in times)}), "
+        f"peak {peak:.3f} GiB; 7e's fwd+bwd call {fwd_bwd_ms:.4f} ms ({smi})")
+
+    # --- 9b. the BASELINE inverse configuration: clebsch 800x600, both routes ---
+    clebsch = scenes["clebsch"]
+    baseline_steps = {}
+    for label, backend, soft_tau, steps in (("hard, kernel route", "kernel", None, 5),
+                                            ("soft tau 0.15, pipeline route", "torch", 0.15, 3)):
+        problem, target = fit_case(clebsch, ["coefs", "light_color"], backend, soft_tau)
+        loss_fn = inverse.make_loss_fn(problem)
+        if loss_fn.use_kernel != (backend == "kernel"):
+            raise RuntimeError(f"baseline fit {label}: wrong route")
+        zero_counts()
+        losses, times, peak = fit_steps(problem, target, steps)
+        launches = (render_fwd.launches_save_aux, render_bwd.launches)
+        baseline_steps[label] = float(np.median(times))
+        log(f"[fit] clebsch 800x600 coefs+light_color, {label} ({loss_fn.block_rows} rows a "
+            f"block): losses {losses}, step ms {', '.join(f'{t:.4f}' for t in times)}, peak "
+            f"{peak:.3f} GiB, kernel launches (fwd with aux, bwd) {launches} ({smi})")
+        want = (steps, steps) if backend == "kernel" else (0, 0)
+        if launches != want or not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise RuntimeError(f"baseline fit {label}: launches {launches} (want {want}) or the "
+                               f"loss did not fall: {losses}")
+
+    # --- 9c. the soft render converges to the hard one at full size ---
+    from tpu_ray_tracer_torch.ops import camera as camera_ops
+
+    for name in ("clebsch", "quadratic"):
+        scene = scenes[name].astype(torch.float32)
+        hard_config = ttt.RenderConfig("float32", polish_iters=2, bounces=0, chunk_px=None)
+        with torch.no_grad():
+            hard = ttt.render_image(scene, camera(), hard_config)
+            rot, eye = camera_ops.camera_frame(camera())
+            rows = inverse.make_loss_fn(inverse.InverseProblem(
+                scene, fit_config, soft_tau=1e-4)).block_rows
+            soft = torch.cat([render_rays_soft(
+                scene, eye.expand(d.shape), d, polish_iters=2, tau=1e-4)
+                for d in (camera_ops.pixel_directions(rot, scene.width, scene.height,
+                                                      scene.aspect_ratio, scene.tan_half_fov,
+                                                      y0=y0, rows=min(rows, scene.height - y0))
+                          for y0 in range(0, scene.height, rows))])
+        frac = bad_pixel_fraction(soft.cpu().numpy(), hard.cpu().numpy())
+        log(f"[soft] {name} {scene.width}x{scene.height} tau 1e-4 vs the hard pipeline frame: "
+            f"{frac:.6f} of pixels apart by > 2/255 (limit 0.02)")
+        if not torch.isfinite(soft).all() or frac >= 0.02:
+            raise RuntimeError(f"soft {name}: {frac} of pixels apart")
+
+    # --- 9d. checkpoint resume on the card ---
+    ck = os.path.join(out_dir, "fit_checkpoint.npz")
+    if os.path.exists(ck):
+        os.remove(ck)
+    quiet = dict(log_every=0, print_fn=lambda *a: None)
+    whole, _ = inverse.fit(ding_problem, ding_target, camera(), steps=4, **quiet)
+    inverse.fit(ding_problem, ding_target, camera(), steps=2, checkpoint_path=ck,
+                checkpoint_every=2, **quiet)
+    resumed, resumed_losses = inverse.fit(ding_problem, ding_target, camera(), steps=4,
+                                          checkpoint_path=ck, checkpoint_every=2, **quiet)
+    diffs = {k: float((whole[k] - resumed[k]).abs().max()) for k in whole}
+    log(f"[checkpoint] 4 steps against 2 + checkpoint + 2 resumed ({len(resumed_losses)} "
+        f"steps run): max|diff| {diffs}")
+    if len(resumed_losses) != 2 or any(v != 0.0 for v in diffs.values()):
+        raise RuntimeError(f"checkpoint resume: params differ {diffs}")
+    with np.load(ck) as data:
+        kept = {k: data[k] for k in data.files if not k.startswith("opt/")}
+    np.savez(ck, **kept)
+    try:
+        inverse.fit(ding_problem, ding_target, camera(), steps=4, checkpoint_path=ck, **quiet)
+    except KeyError as exc:
+        log(f"[checkpoint] without opt/... keys: raises KeyError {exc}")
+    else:
+        raise RuntimeError("checkpoint without optimizer state: resumed silently")
+    log(f"[fit] phase 9 in {time.perf_counter() - t_fit:.1f} s")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     print(smi)
@@ -647,9 +805,10 @@ def main() -> int:
         "source": "tpu_ray_tracer_torch/csrc/render_fwd.cu",
         "replaces": "tpu_ray_tracer/render/pallas_backend.py:978",
         "launches": (main_launches + grad_launches["render_fwd"] + cli_launches
-                     + fallback_launches),
+                     + fallback_launches + fit_launches["render_fwd"]),
         "launches_by_path": {"forward": main_launches, "gradient": grad_launches["render_fwd"],
-                             "cli": cli_launches, "fallback": fallback_launches},
+                             "cli": cli_launches, "fallback": fallback_launches,
+                             "fit": fit_launches["render_fwd"]},
         "max_abs_err": worst_abs,
         "worst_bad_px_vs_plain": worst_frac,
         "ms": kernel_ms,
@@ -666,7 +825,9 @@ def main() -> int:
         "route": "cuda",
         "source": "tpu_ray_tracer_torch/csrc/render_bwd.cu",
         "replaces": "tpu_ray_tracer/render/pallas_backend.py:1613",
-        "launches": grad_launches["render_bwd"],
+        "launches": grad_launches["render_bwd"] + fit_launches["render_bwd"],
+        "launches_by_path": {"gradient": grad_launches["render_bwd"],
+                             "fit": fit_launches["render_bwd"]},
         "max_abs_err": bwd_worst_abs,
         "worst_group_relerr_vs_plain": bwd_worst_rel,
         "ms": bwd_ms,
@@ -677,6 +838,7 @@ def main() -> int:
         "share_of_bound": bwd_bound / bwd_ms,
         "ops_per_px": bwd_ops / n_px,
         "fwd_bwd_call_ms": fwd_bwd_ms,
+        "fit_step_ms": fit_step_ms,
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
 """The port's command line and utilities (``cli.py``, ``utils/``) against the
-JAX package's: the cases of tests/test_cli.py (without ``fit``, not ported
-yet), tests/test_guard.py, tests/test_flycam.py and tests/test_term_view.py,
-each with ``--device cpu`` (the card is the default); and the PNG that
+JAX package's: the cases of tests/test_cli.py (``fit`` with the port's
+backend names: ``torch`` for ``jax``/``xla``, ``kernel`` for ``pallas``),
+tests/test_guard.py, tests/test_flycam.py and tests/test_term_view.py, each
+with ``--device cpu`` (the card is the default); and the PNG that
 ``render --backend numpy`` writes, byte for byte the JAX CLI's."""
 
 import dataclasses
@@ -112,6 +113,75 @@ def test_animate_writes_frames(tmp_path):
     assert rc == 0
     assert os.path.exists(prefix + "0000.png")
     assert os.path.exists(prefix + "0001.png")
+
+
+def test_fit_self_recovery(capsys):
+    rc = main(["fit", scene_path("cayley"), "--size", "24", "16", "--steps", "8", "--lr", "0.05",
+               *CPU])
+    assert rc == 0
+    out = capsys.readouterr().out
+    losses = re.search(r"^loss: (\S+) -> (\S+) over 8 steps$", out, re.M)
+    assert losses and float(losses[2]) < float(losses[1]), out
+
+
+def test_fit_kernel_backend_reachable(capsys):
+    """--backend kernel reaches the forward and backward kernels' entries
+    (their plain versions on the CPU)."""
+    rc = main(["fit", scene_path("quadratic"), "--size", "16", "12", "--steps", "2",
+               "--backend", "kernel", *CPU])
+    assert rc == 0
+    assert "loss:" in capsys.readouterr().out
+
+
+def test_fit_backend_wiring(monkeypatch):
+    """auto on the CPU -> torch; an explicit kernel passes through, also with
+    a soft loss (the explicit choice is honoured; the loss then takes the
+    pipeline)."""
+    from tpu_ray_tracer_torch.diff import inverse as inv
+
+    captured = {}
+    real_problem = inv.InverseProblem
+
+    def spy(**kwargs):
+        captured["backend"] = kwargs.get("backend")
+        return real_problem(**kwargs)
+
+    monkeypatch.setattr(inv, "InverseProblem", spy)
+    args = ["fit", scene_path("quadratic"), "--size", "12", "8", "--steps", "1", *CPU]
+    main([*args, "--backend", "kernel"])
+    assert captured["backend"] == "kernel"
+    main(args)
+    assert captured["backend"] == "torch"  # auto on the CPU
+    main([*args, "--backend", "kernel", "--soft-tau", "0.2", "--params", "coefs"])
+    assert captured["backend"] == "kernel"
+
+
+def test_fit_rejects_numpy_backend(capsys):
+    rc = main(["fit", scene_path("quadratic"), "--size", "12", "8", "--steps", "1",
+               "--backend", "numpy", *CPU])
+    assert rc == 2
+    assert "not differentiable" in capsys.readouterr().err
+
+
+def test_fit_distributed_not_ported(capsys):
+    rc = main(["fit", scene_path("quadratic"), "--distributed", *CPU])
+    assert rc != 0
+    assert "item 9" in capsys.readouterr().err
+
+
+def test_fit_camera_and_checkpoint_resume(tmp_path, capsys):
+    """--params camera prints the recovered pose beside the truth; a run
+    with --checkpoint resumes where the last one saved."""
+    ck = str(tmp_path / "ck.npz")
+    args = ["fit", scene_path("quadratic"), "--size", "16", "12", "--params", "camera",
+            "--pose", "0", "-25", "0", "90", "0", "--checkpoint", ck, "--checkpoint-every", "2",
+            *CPU]
+    assert main([*args, "--steps", "2"]) == 0
+    assert "recovered pose: position (" in capsys.readouterr().out
+    assert main([*args, "--steps", "3"]) == 0
+    out = capsys.readouterr().out
+    assert f"resumed from {ck} at step 2" in out and "over 1 steps" in out
+    assert "self-recovery truth: (0, -25, 0), 90, 0" in out
 
 
 @pytest.mark.parametrize("backend", ["auto", "torch", "kernel"])

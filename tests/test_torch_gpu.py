@@ -1,5 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
-forward (with and without its per-stage aux) and the backward.
+forward (with and without its per-stage aux) and the backward; the plain
+pipeline, the gradient fallback and the CLI on the card; and the fit's
+kernel-route step, its row-block pipeline backward and the soft render.
 
 This file imports nothing of JAX, so it runs on a machine with a GPU and
 without JAX, from the repository root:
@@ -490,3 +492,92 @@ def test_argmin_ties_on_card(cuda):
     t = torch.ones(100003, 20, device=cuda)
     t[:, 7:] = 0.5
     assert (torch.argmin(t, dim=-1) == 7).all()
+
+
+# --- inverse rendering and soft visibility on the card ---
+
+def test_fit_step_launches_each_kernel_once(cuda):
+    """A kernel-route train step: one render_fwd launch with aux and one
+    render_bwd launch; the parameters and the Adam state stay on the card."""
+    from tpu_ray_tracer_torch.diff.inverse import (InverseProblem, extract_params,
+                                                   make_train_step)
+
+    scene = _scene("dingdong", cuda)
+    with torch.no_grad():
+        target = ttt.render_image_kernel(scene, polish_iters=2, bounces=0)
+    perturbed = dataclasses.replace(scene, light_color=scene.light_color * 0.6)
+    problem = InverseProblem(scene_template=perturbed,
+                             config=ttt.RenderConfig("float32", 2, chunk_px=None),
+                             param_fields=("light_color",), learning_rate=5e-2, backend="kernel")
+    params = extract_params(perturbed.astype(torch.float32), problem.param_fields)
+    optimizer = problem.optimizer(params)
+    step = make_train_step(problem)
+    cam = _camera(POSES[0], cuda)
+    losses = []
+    for _ in range(2):
+        f0, a0, b0 = render_fwd.launches, render_fwd.launches_save_aux, render_bwd.launches
+        losses.append(step(params, optimizer, cam, target))
+        torch.cuda.synchronize()
+        assert (render_fwd.launches - f0, render_fwd.launches_save_aux - a0,
+                render_bwd.launches - b0) == (1, 1, 1)
+    assert np.isfinite(losses).all() and losses[1] < losses[0]
+    state = optimizer.state[params["light_color"]]
+    assert params["light_color"].device.type == state["exp_avg"].device.type == "cuda"
+
+
+def test_row_block_backward_equals_one_shot(cuda):
+    """The pipeline route's row-block backward against one shot on
+    dingdong 640x480 at pitch 5: the loss within 1e-5 and each gradient
+    within 1e-4 of its largest entry (the f32 summation order differs)."""
+    from tpu_ray_tracer_torch.diff.inverse import (InverseProblem, extract_params,
+                                                   make_loss_fn, param_tensors)
+
+    scene = _scene("dingdong", cuda, 640, 480)
+    cam = _camera(((0.0, 0.0, 0.0), 90.0, 5.0), cuda)
+    with torch.no_grad():
+        target = ttt.render_image_kernel(scene, cam) * 0.9
+    problem = InverseProblem(scene_template=scene,
+                             config=ttt.RenderConfig("float32", 3, chunk_px=None),
+                             param_fields=("coefs", "light_color", "camera"))
+    loss_fn = make_loss_fn(problem)
+    one = extract_params(scene, problem.param_fields, camera=cam)
+    whole = loss_fn(one, None, target)
+    whole.backward()
+    blocks = extract_params(scene, problem.param_fields, camera=cam)
+    loss_fn.block_rows = 100
+    value = loss_fn.backward(blocks, None, target)
+    assert float(value) == pytest.approx(float(whole.detach()), rel=1e-5)
+    for a, b in zip(param_tensors(one), param_tensors(blocks)):
+        scale = float(a.grad.abs().max())
+        assert scale > 0
+        assert float((a.grad - b.grad).abs().max()) <= 1e-4 * scale
+
+
+def test_soft_render_on_card_matches_cpu(cuda):
+    """``render_rays_soft`` on clebsch 64x48 (tau 0.15) on the card against
+    the same call on the CPU: at most 1e-3 of the pixels apart by more than
+    2/255, and the gradient of the image sum with respect to the
+    coefficients and light colours within tests/test_pallas.py:174-181's
+    rule."""
+    from tpu_ray_tracer_torch.diff.soft import render_rays_soft
+    from tpu_ray_tracer_torch.ops import camera as camera_ops
+
+    results = []
+    for device in (cuda, torch.device("cpu")):
+        scene = _scene("clebsch", device).astype(torch.float32)
+        leaves = [scene.coefs.clone().requires_grad_(),
+                  scene.light_color.clone().requires_grad_()]
+        scene = dataclasses.replace(scene, coefs=leaves[0], light_color=leaves[1])
+        rot, eye = camera_ops.camera_frame(_camera(POSES[0], device))
+        dirs = camera_ops.pixel_directions(rot, scene.width, scene.height, scene.aspect_ratio,
+                                           scene.tan_half_fov)
+        img = render_rays_soft(scene, eye.expand(dirs.shape), dirs, polish_iters=2, tau=0.15)
+        img.sum().backward()
+        results.append((img.detach().cpu().numpy(), [t.grad.cpu().numpy() for t in leaves]))
+    (gpu_img, gpu_grads), (cpu_img, cpu_grads) = results
+    assert np.isfinite(gpu_img).all()
+    assert bad_pixel_fraction(gpu_img, cpu_img) <= MAX_BAD_VS_PLAIN
+    for got, ref in zip(gpu_grads, cpu_grads):
+        scale = max(np.abs(ref).max(), 1e-6)
+        tol = 2e-3 if np.abs(ref).max() > 1.0 else 2e-2
+        assert np.abs(got - ref).max() / scale < tol

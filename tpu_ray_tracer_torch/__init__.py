@@ -17,11 +17,19 @@ Beside the kernels, the plain PyTorch pipeline (``render_image``,
 ``render_rays``, ``RenderConfig`` with ``FAST_CONFIG`` in f32 and
 ``GOLDEN_CONFIG`` in f64) renders and differentiates any scene, and gives
 ``render_image_kernel`` its gradient where the fused backward cannot encode
-the scene (more than 31 lights, or no object). The NumPy oracle
-(``render/reference_cpu.py``), the utilities and the command line
-(``python -m tpu_ray_tracer_torch.cli``) complete the user-facing surface.
+the scene (more than 31 lights, or no object). Inverse rendering
+(``InverseProblem``, ``fit`` and the ``.npz`` checkpoints of
+``diff/inverse.py``) takes Adam steps on scene and camera parameters
+against a target frame, through the two kernels where they encode the scene
+and through the pipeline otherwise; ``render_rays_soft`` (``diff/soft.py``)
+is the soft-visibility render whose loss descends across root-pair events.
+The NumPy oracle (``render/reference_cpu.py``), the utilities and the
+command line (``python -m tpu_ray_tracer_torch.cli``) complete the
+user-facing surface.
 """
 
+from .diff.inverse import InverseProblem, fit, load_checkpoint, save_checkpoint
+from .diff.soft import render_rays_soft
 from .models.errors import SceneError
 from .models.loader import load_from_file, load_from_string
 from .models.scene import Scene, build_scene
@@ -39,13 +47,18 @@ __all__ = [
     "Camera",
     "FAST_CONFIG",
     "GOLDEN_CONFIG",
+    "InverseProblem",
     "RenderConfig",
     "Scene",
     "SceneError",
     "build_scene",
+    "fit",
+    "load_checkpoint",
     "load_from_file",
     "load_from_string",
     "render_image",
     "render_image_kernel",
     "render_rays",
+    "render_rays_soft",
+    "save_checkpoint",
 ]

@@ -8,15 +8,20 @@ are headless, so the shell becomes subcommands:
   — one frame to a PNG/NPY.
 * ``bench <scene.yml> [--frames N]`` — frame-time / FPS / Mrays/s report,
   printing the reference's ``FPS: ..., last render time: ... ms`` line.
+* ``fit <scene.yml> [--params F,...] [--steps N] [--soft-tau T]`` — inverse
+  rendering: recover perturbed scene parameters (or the pose) from a target
+  frame by Adam steps.
 * ``view <scene.yml>`` — interactive terminal viewer with the fly camera.
 * ``animate <scene.yml>`` — render a camera path (the offline analogue of
   fly-camera interaction), writing numbered PNGs.
 
 Backends: ``torch`` is the plain PyTorch pipeline (the JAX package's
-``jax``), ``kernel`` the hand-written forward kernel (its ``pallas``),
-``numpy`` the f64 NumPy oracle. ``auto`` takes the pipeline for ``render``
-and ``animate``, and for ``bench`` and ``view`` the kernel on the card and
-the pipeline on the CPU. ``--device`` places the scene and the render:
+``jax``, or ``xla`` for ``fit``), ``kernel`` the hand-written kernels (its
+``pallas``), ``numpy`` the f64 NumPy oracle. ``auto`` takes the pipeline for
+``render`` and ``animate``, and for ``bench``, ``view`` and ``fit`` the
+kernel on the card and the pipeline on the CPU (``fit`` takes the pipeline
+for a soft loss, an empty scene or more than 31 lights; it rejects
+``numpy``). ``--device`` places the scene and the render:
 ``cuda`` (the default) raises without a card; ``cpu`` renders on the host,
 where the kernel backend runs its plain version.
 
@@ -231,6 +236,113 @@ def cmd_bench(args) -> int:
     return 0
 
 
+def cmd_fit(args) -> int:
+    """Inverse rendering: recover perturbed scene parameters from a target
+    image by gradient descent (BASELINE.json config; no reference analog)."""
+    import numpy as np
+    import torch
+
+    from . import Camera
+    from .diff.inverse import InverseProblem, fit
+    from .render.kernel_backend import MAX_AUX_LIGHTS, render_image_kernel
+    from .render.pipeline import RenderConfig, resolve_bounces
+
+    if args.distributed:
+        print("fit: --distributed needs the row-sharded loss across processes "
+              "(ROADMAP Queue 1 item 9), which the port does not have yet", file=sys.stderr)
+        return 2
+    scene = _load(args)
+    device = scene.coefs.device
+    config = RenderConfig(geom_dtype="float32", polish_iters=2, chunk_px=None)
+    # --pose sets the camera the self-recovery target is rendered at (and
+    # the fixed render camera for scene-parameter fits)
+    true_cam = _camera_from_pose(args.pose or (0.0, 0.0, 0.0, 90.0, 0.0), device)
+    if args.target:
+        target = torch.as_tensor(np.load(args.target), dtype=torch.float32, device=device)
+    else:
+        # self-recovery: the target is the unperturbed scene's frame
+        with torch.no_grad():
+            target = render_image_kernel(scene, true_cam, polish_iters=config.polish_iters,
+                                         bounces=resolve_bounces(scene, config))
+
+    fields = args.params.split(",")
+    perturbed = _perturb_scene(scene, fields, args.perturb)
+    camera = true_cam
+    if "camera" in fields and not args.target:
+        # self-recovery pose fit: start from a perturbed pose; with an
+        # external --target, --pose is the user's initial guess
+        camera = _perturbed_camera(true_cam, args.pose_perturb)
+    backend = args.backend
+    if backend == "numpy":
+        # fit cannot honour --backend numpy (the oracle has no gradient), so
+        # reject it rather than remap the user's explicit choice
+        print("fit: --backend numpy is not differentiable; use --backend torch or kernel",
+              file=sys.stderr)
+        return 2
+    if backend == "auto":
+        # the kernels wherever they apply (on the card); soft losses, empty
+        # scenes and > 31-light scenes take the pipeline
+        backend = ("torch" if args.soft_tau is not None or scene.n_objects == 0
+                   or scene.n_lights > MAX_AUX_LIGHTS else _resolve_backend("auto", device))
+    problem = InverseProblem(scene_template=perturbed, config=config,
+                             param_fields=tuple(fields), learning_rate=args.lr,
+                             soft_tau=args.soft_tau, backend=backend)
+    params, losses = fit(problem, target, camera=camera, steps=args.steps,
+                         checkpoint_path=args.checkpoint,
+                         checkpoint_every=args.checkpoint_every,
+                         tau_final=args.soft_tau_final)
+    print(f"loss: {losses[0]:.3e} -> {losses[-1]:.3e} over {len(losses)} steps")
+    if "camera" in params:
+        cam = Camera(*(t.detach() for t in (params["camera"].position,
+                                            params["camera"].yaw_deg,
+                                            params["camera"].pitch_deg)))
+        pos = cam.position.cpu().tolist()
+        hint = ""
+        if not args.target:
+            tp = true_cam.position.cpu().tolist()
+            hint = (f" (self-recovery truth: ({tp[0]:g}, {tp[1]:g}, {tp[2]:g}),"
+                    f" {float(true_cam.yaw_deg):g}, {float(true_cam.pitch_deg):g})")
+        print(f"recovered pose: position ({pos[0]:.4f}, {pos[1]:.4f}, {pos[2]:.4f}), "
+              f"yaw {float(cam.yaw_deg):.3f} deg, pitch {float(cam.pitch_deg):.3f} deg{hint}")
+    return 0
+
+
+def _perturb_scene(scene, fields, factor):
+    """Perturb exactly the scene fields being optimized (``--params``), so
+    that self-recovery descends on the parameters that differ from the
+    target. ``coefs`` perturbs only the constant column: a uniform scaling
+    of all 20 coefficients leaves the zero set F = 0 unchanged."""
+    import dataclasses
+
+    updates = {}
+    for field in fields:
+        if field == "camera":
+            continue  # the pose is perturbed by _perturbed_camera
+        value = getattr(scene, field)
+        if field == "coefs":
+            value = value.clone()
+            value[:, 19] = value[:, 19] * factor
+        else:
+            value = value * factor
+        updates[field] = value
+    return dataclasses.replace(scene, **updates)
+
+
+def _perturbed_camera(base, pose_perturb_deg: float):
+    """Initial pose guess for camera recovery: ``base`` offset by
+    ``pose_perturb_deg`` in yaw (half of it in pitch) and a proportional
+    position shift."""
+    import torch
+
+    from . import Camera
+
+    d = float(pose_perturb_deg)
+    shift = torch.tensor([0.02 * d, -0.02 * d, 0.01 * d], dtype=torch.float32,
+                         device=base.position.device)
+    return Camera(position=base.position + shift, yaw_deg=base.yaw_deg + d,
+                  pitch_deg=base.pitch_deg - 0.5 * d)
+
+
 def cmd_view(args) -> int:
     """Interactive terminal viewer (the reference's GLFW window analogue).
 
@@ -297,6 +409,31 @@ def main(argv=None) -> int:
                    help="write a torch.profiler trace of the timed frames to "
                         "DIR/trace.json")
     p.set_defaults(fn=cmd_bench)
+
+    p = sub.add_parser("fit", help="inverse rendering: recover scene params")
+    _add_common(p)
+    p.add_argument("--target", default=None, help=".npy target image (default: self)")
+    p.add_argument("--steps", type=int, default=100)
+    p.add_argument("--lr", type=float, default=5e-2)
+    p.add_argument("--perturb", type=float, default=0.6,
+                   help="light-intensity perturbation factor to recover from")
+    p.add_argument("--params", default="light_color",
+                   help="comma-separated scene fields to optimize; the pseudo-field "
+                        "'camera' optimizes the camera pose (position/yaw/pitch)")
+    p.add_argument("--pose-perturb", type=float, default=3.0,
+                   help="initial pose offset in degrees for --params camera "
+                        "self-recovery (plus a proportional position shift)")
+    p.add_argument("--checkpoint", default=None, help="checkpoint .npz path")
+    p.add_argument("--checkpoint-every", type=int, default=0)
+    p.add_argument("--distributed", action="store_true",
+                   help="multi-process job (not ported yet: ROADMAP Queue 1 item 9)")
+    p.add_argument("--soft-tau", type=float, default=None,
+                   help="soft-visibility temperature for surface-coefficient recovery "
+                        "across silhouette discontinuities (e.g. 0.15); default: hard render")
+    p.add_argument("--soft-tau-final", type=float, default=None,
+                   help="continuation: anneal the temperature geometrically from "
+                        "--soft-tau down to this value (e.g. 1e-3)")
+    p.set_defaults(fn=cmd_fit)
 
     p = sub.add_parser("view", help="interactive terminal viewer (fly camera)")
     _add_common(p)

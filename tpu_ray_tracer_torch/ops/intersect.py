@@ -40,6 +40,45 @@ def _solve(coefs, origin, dir, polish_iters):
                              make_newton_polisher(coefs, origin, dir, polish_iters))
 
 
+def _intersect_bwd(res, g, needs):
+    """The IFT rule at the roots ``t``: cotangents of (coefs, origin, dir)
+    for the root table's cotangent ``g`` [..., N], each None where ``needs``
+    (three flags) does not ask for it. ``res`` is (coefs, origin, dir, t).
+    The counterpart of the JAX package's ``_intersect_bwd``; the soft
+    render's reattached roots (``diff/soft.py``) use it too."""
+    coefs, origin, dir, t = res
+    want_coefs, want_origin, want_dir = needs
+    # Point on each object's candidate hit: [..., N, 3]
+    point = origin[..., None, :] + t[..., None] * dir[..., None, :]
+    gx, gy, gz = _gradient_axes(coefs, point)                  # each [..., N]
+    d = dir[..., None, :]
+    df_dt = gx * d[..., 0] + gy * d[..., 1] + gz * d[..., 2]   # [..., N]
+
+    valid = (t >= EPS) & (t < MAX_T) & (torch.abs(df_dt) > _GRAZING_CLAMP)
+    inv = torch.where(valid, -1.0 / torch.where(valid, df_dt, torch.ones_like(df_dt)),
+                      torch.zeros_like(df_dt))
+    scale = g * inv                                            # [..., N]
+
+    d_coefs = d_origin = d_dir = None
+    if want_coefs:
+        # dg/dcoefs_m = monomial_m(point), summed over rays column by
+        # column: [N, 20] without the [..., N, 20] basis
+        n_obj = coefs.shape[0]
+        d_coefs = torch.stack(
+            [(scale * mono).reshape(-1, n_obj).sum(0) for mono in _monomials(point)],
+            dim=-1).to(coefs.dtype)
+    # dg/do = grad F, dg/dd = t * grad F: reduce over objects -> [..., 3]
+    if want_origin or want_dir:
+        grad_f = torch.stack([gx, gy, gz], dim=-1)             # [..., N, 3]
+    if want_origin:
+        d_origin = (scale[..., None] * grad_f).sum(-2).sum_to_size(origin.shape)
+        d_origin = d_origin.to(origin.dtype)
+    if want_dir:
+        d_dir = ((scale * t)[..., None] * grad_f).sum(-2).sum_to_size(dir.shape)
+        d_dir = d_dir.to(dir.dtype)
+    return d_coefs, d_origin, d_dir
+
+
 class _IntersectAll(torch.autograd.Function):
     """The solve forward, the IFT rule of ``_intersect_bwd`` backward."""
 
@@ -51,37 +90,7 @@ class _IntersectAll(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        coefs, origin, dir, t = ctx.saved_tensors
-        want_coefs, want_origin, want_dir, _ = ctx.needs_input_grad
-        # Point on each object's candidate hit: [..., N, 3]
-        point = origin[..., None, :] + t[..., None] * dir[..., None, :]
-        gx, gy, gz = _gradient_axes(coefs, point)                  # each [..., N]
-        d = dir[..., None, :]
-        df_dt = gx * d[..., 0] + gy * d[..., 1] + gz * d[..., 2]   # [..., N]
-
-        valid = (t >= EPS) & (t < MAX_T) & (torch.abs(df_dt) > _GRAZING_CLAMP)
-        inv = torch.where(valid, -1.0 / torch.where(valid, df_dt, torch.ones_like(df_dt)),
-                          torch.zeros_like(df_dt))
-        scale = g * inv                                            # [..., N]
-
-        d_coefs = d_origin = d_dir = None
-        if want_coefs:
-            # dg/dcoefs_m = monomial_m(point), summed over rays column by
-            # column: [N, 20] without the [..., N, 20] basis
-            n_obj = coefs.shape[0]
-            d_coefs = torch.stack(
-                [(scale * mono).reshape(-1, n_obj).sum(0) for mono in _monomials(point)],
-                dim=-1).to(coefs.dtype)
-        # dg/do = grad F, dg/dd = t * grad F: reduce over objects -> [..., 3]
-        if want_origin or want_dir:
-            grad_f = torch.stack([gx, gy, gz], dim=-1)             # [..., N, 3]
-        if want_origin:
-            d_origin = (scale[..., None] * grad_f).sum(-2).sum_to_size(origin.shape)
-            d_origin = d_origin.to(origin.dtype)
-        if want_dir:
-            d_dir = ((scale * t)[..., None] * grad_f).sum(-2).sum_to_size(dir.shape)
-            d_dir = d_dir.to(dir.dtype)
-        return d_coefs, d_origin, d_dir, None
+        return (*_intersect_bwd(ctx.saved_tensors, g, ctx.needs_input_grad[:3]), None)
 
 
 def intersect_all(coefs, origin, dir, polish_iters: int = 0):

@@ -647,8 +647,9 @@ def render_fwd(coefs, orig_index, colors, refl, lights, dir_table, posdef, cam,
     """Render image rows [row0, row0 + rows) -> [rows, width, 3] f32.
 
     CUDA tables launch the kernel of ``csrc/render_fwd.cu`` on the current
-    stream (and count the launch in ``render_fwd.launches`` and in
-    ``render_fwd.launches_by_variant``); CPU tables run ``render_fwd_plain``.
+    stream (and count the launch in ``render_fwd.launches``, in
+    ``render_fwd.launches_by_variant`` and, with ``save_aux``, in
+    ``render_fwd.launches_save_aux``); CPU tables run ``render_fwd_plain``.
     Tables on any other device raise. The instantiation is ``fwd_variant``'s.
 
     ``save_aux`` (the Pallas kernel's ``save_aux=True``, for the backward)
@@ -708,8 +709,10 @@ def render_fwd(coefs, orig_index, colors, refl, lights, dir_table, posdef, cam,
                            f"({_build.error_string('render_fwd', rc)})")
     render_fwd.launches += 1
     render_fwd.launches_by_variant[variant] += 1
+    render_fwd.launches_save_aux += int(save_aux)
     return (out, *aux) if save_aux else out
 
 
 render_fwd.launches = 0
 render_fwd.launches_by_variant = dict.fromkeys(FWD_VARIANTS, 0)
+render_fwd.launches_save_aux = 0

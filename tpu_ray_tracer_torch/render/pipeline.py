@@ -80,7 +80,14 @@ class TraceResult(NamedTuple):
 def trace_and_shade(scene: Scene, origin, dir, polish_iters: int) -> TraceResult:
     """Nearest-hit + lighting, the analogue of reference
     ``get_color_and_object`` (src/update-cpu.cpp:45-80)."""
-    t_all = intersect_all(scene.coefs, origin, dir, polish_iters)   # [..., N]
+    return shade_roots(scene, origin, dir,
+                       intersect_all(scene.coefs, origin, dir, polish_iters), polish_iters)
+
+
+def shade_roots(scene: Scene, origin, dir, t_all, polish_iters: int) -> TraceResult:
+    """``trace_and_shade`` given the per-object root table ``t_all``
+    [..., N]: the nearest valid root, its normal and its shadow-tested
+    lighting (the soft render shades two root tables with it)."""
     valid = valid_hit_mask(t_all)
     hit = valid.any(-1)
     t_masked = torch.where(valid, t_all, torch.full_like(t_all, MAX_T))
