@@ -84,10 +84,35 @@ result line):
    than 2/255 (tests/test_soft.py:36-59's rule);
 9d. checkpoint resume: 4 kernel-route fit steps on dingdong against 2, a
    checkpoint and 2 resumed, bitwise equal parameters; a checkpoint without
-   its ``opt/...`` keys raises.
+   its ``opt/...`` keys raises;
+10a. the row-sharded path at world size 1 over NCCL, in this process
+   (the counts set to 0 just before): ``render_image_sharded`` (kernel
+   route) on dingdong 1280x720 equals phase 3's frame bit for bit, and 5
+   sharded kernel-route fit steps (light colours x0.6, polish 2) give the
+   losses and parameters of ``make_train_step`` without a process group,
+   bit for bit; each step's time by CUDA events and its peak memory;
+10b. two ranks on the one card, in two spawned processes of this script
+   (``--rank``; gloo on CUDA tensors, since NCCL refuses two ranks on one
+   device; each child bounded by a timeout): the stitched frame equals phase
+   3's bit for bit; rank 1's rows (row0 360) match ``render_fwd_plain`` on
+   the same tables under phase 5's 1e-3 rule; a 5-step ``fit`` with a
+   shared checkpoint path gives the same light colours on both ranks, bit
+   for bit, and losses and light colours within 1e-5 relative of 10a's,
+   the loss falling, only rank 0 writing the checkpoint, and each rank 5
+   ``render_fwd`` launches with aux and 5 ``render_bwd``; each step timed;
+10c. ``python -m torch.distributed.run --standalone --nproc_per_node 1 -m
+   tpu_ray_tracer_torch.cli fit scenes/dingdong.yml --steps 5
+   --distributed``: exit 0, one summary line, the loss falling. A world of
+   one forms no process group, so this runs no collective: it checks the
+   CLI's torchrun entry on the card (NCCL refuses a second rank on the one
+   card; two CLI ranks run over gloo in tests/test_torch_multihost.py);
+10d. the native C++ loader (``tpu_ray_tracer_torch/native``, built with g++)
+   puts all 8 scenes on the card with tables equal to the Python loader's,
+   and its dingdong renders phase 3's frame bit for bit.
 
 The last lines are the card's name and power limit, a {"kernels": [...]}
-line (each kernel's launches on the main path, its time, its plain
+line (each kernel's launches on the main paths, the sharded ones of 10a and
+of both ranks of 10b included, its time, its plain
 version's, its bound and share of the bound on dingdong 1280x720; no single
 PyTorch call computes either function, so ``library_ms`` is null), and
 {"ok": true, "device": {...}}.
@@ -116,8 +141,10 @@ OFF_POSE = ((0.0, 2.0, -3.0), 75.0, -12.0)
 TIMED_FRAMES = 32
 PLAIN_FRAMES = 3
 KERNELS = ("render_fwd", "render_bwd")
-FIT_STEPS = 5          # 9a: the CLI's fit on dingdong
+FIT_STEPS = 5          # 9a: the CLI's fit on dingdong; 10a-10c: the sharded fit
 FIT_TIMED_STEPS = 8    # 9a: the train step timed alone
+RANK_TIMEOUT_S = 300   # 10b, 10c: each spawned process
+SHARDED_FIT_RTOL = 1e-5  # 10b against 10a: losses and light colours, relative
 DIFF_FIELDS = ("coefs", "colors", "reflection", "light_p", "light_color", "bg_color",
                "tan_half_fov")
 
@@ -700,13 +727,16 @@ def main() -> int:
             soft_tau=soft_tau)
         return problem, target
 
-    def fit_steps(problem, target, steps):
-        """``steps`` train steps -> (losses, ms of each step by CUDA events,
-        peak device memory in GiB)."""
+    def fit_steps(problem, target, steps, params_out=None, group=None):
+        """``steps`` train steps (row-sharded over ``group``; None is one
+        process) -> (losses, ms of each step by CUDA events, peak device
+        memory in GiB); the parameters reached go into ``params_out``."""
         params = inverse.extract_params(problem.scene_template.astype(torch.float32),
                                         problem.param_fields)
+        if params_out is not None:
+            params_out.update(params)
         optimizer = problem.optimizer(params)
-        step = inverse.make_train_step(problem)
+        step = inverse.make_train_step(problem, group)
         losses, times = [], []
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -781,7 +811,7 @@ def main() -> int:
                 checkpoint_every=2, **quiet)
     resumed, resumed_losses = inverse.fit(ding_problem, ding_target, camera(), steps=4,
                                           checkpoint_path=ck, checkpoint_every=2, **quiet)
-    diffs = {k: float((whole[k] - resumed[k]).abs().max()) for k in whole}
+    diffs = {k: float((whole[k] - resumed[k]).detach().abs().max()) for k in whole}
     log(f"[checkpoint] 4 steps against 2 + checkpoint + 2 resumed ({len(resumed_losses)} "
         f"steps run): max|diff| {diffs}")
     if len(resumed_losses) != 2 or any(v != 0.0 for v in diffs.values()):
@@ -796,8 +826,131 @@ def main() -> int:
     else:
         raise RuntimeError("checkpoint without optimizer state: resumed silently")
     log(f"[fit] phase 9 in {time.perf_counter() - t_fit:.1f} s")
+
+    # --- 10a. the row-sharded path at world size 1 over NCCL, in process ---
+    import datetime
+
+    import torch.distributed as dist
+
+    from tpu_ray_tracer_torch import native
+    from tpu_ray_tracer_torch.parallel.sharding import make_mesh, render_image_sharded
+
+    t_sharded = time.perf_counter()
+    unsharded_params = {}
+    unsharded_losses, unsharded_times, _ = fit_steps(ding_problem, ding_target, FIT_STEPS,
+                                                     unsharded_params)
+    store = os.path.join(out_dir, "nccl_store")
+    if os.path.exists(store):
+        os.remove(store)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    group = make_mesh().group
+    zero_counts()
+    with torch.no_grad():
+        sharded_image = render_image_sharded(
+            ding, camera(), ttt.RenderConfig(polish_iters=3, chunk_px=None),
+            group=group).cpu().numpy()
+    sharded_params = {}
+    held = torch.cuda.memory_allocated() / 2**30
+    sharded_losses, sharded_times, sharded_peak = fit_steps(ding_problem, ding_target, FIT_STEPS,
+                                                            sharded_params, group)
+    torch.cuda.synchronize()
+    sharded_launches = {"render_fwd": render_fwd.launches,
+                        "render_fwd_save_aux": render_fwd.launches_save_aux,
+                        "render_bwd": render_bwd.launches}
+    dist.destroy_process_group()
+    log(f"[sharded] world 1 (NCCL) dingdong 1280x720: launches {sharded_launches}; frame "
+        f"{'equals' if np.array_equal(sharded_image, image) else 'DIFFERS FROM'} phase 3's; "
+        f"losses {sharded_losses} against {unsharded_losses} without a process group")
+    log(f"[time] dingdong 1280x720 sharded fit step, world 1 (NCCL): "
+        f"{', '.join(f'{t:.4f}' for t in sharded_times)} ms, peak {sharded_peak:.3f} GiB "
+        f"({held:.3f} GiB held by the process before the steps); the same steps without a "
+        f"process group just before: {', '.join(f'{t:.4f}' for t in unsharded_times)} ms "
+        f"({smi})")
+    if not np.array_equal(sharded_image, image):
+        raise RuntimeError("sharded world 1: the frame differs from phase 3's")
+    if sharded_losses != unsharded_losses or any(
+            not torch.equal(sharded_params[k], unsharded_params[k]) for k in sharded_params):
+        raise RuntimeError("sharded world 1: the fit differs from the one without a group")
+    if sharded_launches != {"render_fwd": FIT_STEPS + 1, "render_fwd_save_aux": FIT_STEPS,
+                            "render_bwd": FIT_STEPS}:
+        raise RuntimeError(f"sharded world 1: launches {sharded_launches}")
+
+    # --- 10b. two ranks on the one card (gloo over CUDA tensors) ---
+    ranks = run_ranks(2, out_dir)
+    stitched = np.load(os.path.join(out_dir, "sharded_frame.npy"))
+    for r in ranks:
+        log(f"[sharded] world 2 (gloo) rank {r['rank']}: launches {r['launches']}, losses "
+            f"{r['losses']}, checkpoint writes {r['ckpt_writes']}; rows from {r['row0']}: K1 "
+            f"vs plain bad-px {r['bad_px_vs_plain']:.6f} max|diff| "
+            f"{r['max_abs_vs_plain']:.6f}, equal to the gathered frame's: "
+            f"{r['rows_equal_frame']}")
+        log(f"[time] dingdong 1280x720 sharded fit step, world 2 (gloo, one card) rank "
+            f"{r['rank']}: {', '.join(f'{t:.4f}' for t in r['step_ms'])} ms, peak "
+            f"{r['peak_gib']:.3f} GiB ({r['held_gib']:.3f} GiB held by the rank's process "
+            f"before the steps) ({smi})")
+    if not np.array_equal(stitched, image):
+        raise RuntimeError("sharded world 2: the stitched frame differs from phase 3's")
+    # Two ranks sum two half-frame gradients where one rank sums the frame:
+    # the fit differs from 10a's by f32 rounding only. The loss is
+    # all-reduced, so equal losses on both ranks cannot show a missing
+    # gradient reduction; the parameters can: each rank must hold the same
+    # light colours, and they must be 10a's.
+    loss_err = max(abs(a - b) for a, b in zip(ranks[0]["losses"], sharded_losses))
+    loss_scale = max(abs(x) for x in sharded_losses)
+    world1_light = sharded_params["light_color"].detach().cpu().numpy()
+    light_err = float(np.abs(np.asarray(ranks[0]["light_color"]) - world1_light).max()
+                      / np.abs(world1_light).max())
+    log(f"[sharded] world 2 against world 1: losses relerr {loss_err / loss_scale:.3e}, "
+        f"light_color relerr {light_err:.3e} (limit {SHARDED_FIT_RTOL:g} each); ranks' "
+        f"light_color {'equal' if ranks[0]['light_color'] == ranks[1]['light_color'] else 'DIFFER'}")
+    want = {"render_fwd": FIT_STEPS + 2, "render_fwd_save_aux": FIT_STEPS,
+            "render_bwd": FIT_STEPS}
+    if (any(r["launches"] != want for r in ranks) or ranks[0]["ckpt_writes"] != FIT_STEPS
+            or ranks[1]["ckpt_writes"] != 0 or ranks[0]["losses"] != ranks[1]["losses"]
+            or ranks[0]["light_color"] != ranks[1]["light_color"]
+            or not all(r["rows_equal_frame"] for r in ranks)
+            or ranks[1]["bad_px_vs_plain"] > MAX_BAD_VS_PLAIN
+            or loss_err / loss_scale >= SHARDED_FIT_RTOL or light_err >= SHARDED_FIT_RTOL
+            or not ranks[0]["losses"][-1] < ranks[0]["losses"][0]):
+        raise RuntimeError(f"sharded world 2: a check failed: {ranks}")
+
+    # --- 10c. fit --distributed under torchrun ---
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+         "-m", "tpu_ray_tracer_torch.cli", "fit", ding_yml, "--steps", str(FIT_STEPS),
+         "--distributed"],
+        cwd=REPO, env={**os.environ, "PYTHONPATH": REPO}, capture_output=True, text=True,
+        timeout=RANK_TIMEOUT_S)
+    for line in proc.stdout.splitlines():
+        log(f"[torchrun] {line}")
+    summaries = re.findall(r"^loss: (\S+) -> (\S+) over (\d+) steps$", proc.stdout, re.M)
+    if (proc.returncode != 0 or len(summaries) != 1 or int(summaries[0][2]) != FIT_STEPS
+            or not float(summaries[0][1]) < float(summaries[0][0])):
+        raise RuntimeError(f"fit --distributed: rc {proc.returncode}, summaries {summaries}\n"
+                           f"{proc.stderr[-4000:]}")
+
+    # --- 10d. the native scene loader onto the card ---
+    for name, scene in scenes.items():
+        nscene = native.load_from_file(os.path.join(REPO, "scenes", name + ".yml"))
+        differ = [f for f in DIFF_FIELDS + ("light_is_spherical",)
+                  if getattr(nscene, f).device.type != "cuda"
+                  or not torch.equal(getattr(nscene, f), getattr(scene, f))]
+        if differ or (nscene.width, nscene.height) != (scene.width, scene.height):
+            raise RuntimeError(f"native loader {name}: tables differ from the Python loader's "
+                               f"({differ})")
+    native_image = ttt.render_image_kernel(
+        native.load_from_file(os.path.join(REPO, "scenes", "dingdong.yml"))).cpu().numpy()
+    if not np.array_equal(native_image, image):
+        raise RuntimeError("native loader: the dingdong frame differs from phase 3's")
+    log(f"[native] {len(scenes)} scenes on the card equal to the Python loader's tables; "
+        f"dingdong frame equal to phase 3's ({native.build_library()})")
+    log(f"[sharded] phase 10 in {time.perf_counter() - t_sharded:.1f} s")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
+    # the sharded paths' launches: 10a in this process, 10b in both ranks
+    sharded_fwd = sharded_launches["render_fwd"] + sum(r["launches"]["render_fwd"] for r in ranks)
+    sharded_bwd = sharded_launches["render_bwd"] + sum(r["launches"]["render_bwd"] for r in ranks)
     print(smi)
     print(json.dumps({"kernels": [{
         "name": "render_fwd",
@@ -805,10 +958,10 @@ def main() -> int:
         "source": "tpu_ray_tracer_torch/csrc/render_fwd.cu",
         "replaces": "tpu_ray_tracer/render/pallas_backend.py:978",
         "launches": (main_launches + grad_launches["render_fwd"] + cli_launches
-                     + fallback_launches + fit_launches["render_fwd"]),
+                     + fallback_launches + fit_launches["render_fwd"] + sharded_fwd),
         "launches_by_path": {"forward": main_launches, "gradient": grad_launches["render_fwd"],
                              "cli": cli_launches, "fallback": fallback_launches,
-                             "fit": fit_launches["render_fwd"]},
+                             "fit": fit_launches["render_fwd"], "sharded": sharded_fwd},
         "max_abs_err": worst_abs,
         "worst_bad_px_vs_plain": worst_frac,
         "ms": kernel_ms,
@@ -825,9 +978,9 @@ def main() -> int:
         "route": "cuda",
         "source": "tpu_ray_tracer_torch/csrc/render_bwd.cu",
         "replaces": "tpu_ray_tracer/render/pallas_backend.py:1613",
-        "launches": grad_launches["render_bwd"] + fit_launches["render_bwd"],
+        "launches": grad_launches["render_bwd"] + fit_launches["render_bwd"] + sharded_bwd,
         "launches_by_path": {"gradient": grad_launches["render_bwd"],
-                             "fit": fit_launches["render_bwd"]},
+                             "fit": fit_launches["render_bwd"], "sharded": sharded_bwd},
         "max_abs_err": bwd_worst_abs,
         "worst_group_relerr_vs_plain": bwd_worst_rel,
         "ms": bwd_ms,
@@ -846,5 +999,133 @@ def main() -> int:
     return 0
 
 
+def sharded_rank(rank: int, world: int, store: str, out_dir: str) -> int:
+    """10b's body in one spawned rank: both ranks share card 0 over gloo.
+    Writes rank<r>.json (and rank 0 the stitched frame) into ``out_dir``."""
+    import datetime
+
+    import torch
+
+    sys.path.insert(0, REPO)
+    import numpy as np
+
+    import tpu_ray_tracer_torch as ttt
+    from tpu_ray_tracer_torch import cli
+    from tpu_ray_tracer_torch.diff import inverse
+    from tpu_ray_tracer_torch.parallel.multihost import initialize_distributed
+    from tpu_ray_tracer_torch.parallel.sharding import make_mesh, render_image_sharded
+    from tpu_ray_tracer_torch.parity import bad_pixel_fraction
+    from tpu_ray_tracer_torch.render.bwd_kernel import render_bwd
+    from tpu_ray_tracer_torch.render.fwd_kernel import render_fwd, render_fwd_plain
+    from tpu_ray_tracer_torch.render.kernel_backend import pack_frame
+
+    dev = torch.device("cuda", 0)
+    initialize_distributed(backend="gloo", device=dev, init_method=f"file://{store}",
+                           world_size=world, rank=rank, timeout=datetime.timedelta(seconds=120))
+    group = make_mesh(dev).group
+    ding = ttt.load_from_file(os.path.join(REPO, "scenes", "dingdong.yml"))
+    cam = ttt.Camera.initial(torch.float32, dev)
+    fit_config = ttt.RenderConfig("float32", polish_iters=2, chunk_px=None)
+    problem = inverse.InverseProblem(
+        scene_template=cli._perturb_scene(ding, ["light_color"], 0.6), config=fit_config,
+        param_fields=("light_color",), learning_rate=5e-2, backend="kernel")
+    ck = os.path.join(out_dir, "sharded_checkpoint.npz")
+    writes = []
+    save = inverse.save_checkpoint
+
+    def spy(path, params, optimizer, step):
+        writes.append(step)
+        save(path, params, optimizer, step)
+
+    # the main path: the counts set to 0 just before, read just after
+    render_fwd.launches = render_fwd.launches_save_aux = render_bwd.launches = 0
+    with torch.no_grad():
+        frame = render_image_sharded(ding, cam, ttt.RenderConfig(polish_iters=3, chunk_px=None),
+                                     group=group)
+        target = render_image_sharded(ding, cam, fit_config, group=group)
+    inverse.save_checkpoint = spy
+    try:
+        params, losses = inverse.fit(problem, target, cam, steps=FIT_STEPS, log_every=0,
+                                     checkpoint_path=ck, checkpoint_every=1, group=group)
+    finally:
+        inverse.save_checkpoint = save
+    torch.cuda.synchronize()
+    launches = {"render_fwd": render_fwd.launches,
+                "render_fwd_save_aux": render_fwd.launches_save_aux,
+                "render_bwd": render_bwd.launches}
+    # each sharded step alone, by CUDA events, with its peak memory
+    params_t = inverse.extract_params(problem.scene_template.astype(torch.float32),
+                                      problem.param_fields)
+    optimizer = problem.optimizer(params_t)
+    step = inverse.make_train_step(problem, group)
+    times = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**30
+    for _ in range(FIT_STEPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(params_t, optimizer, cam, target)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # this rank's rows through K1 against the plain version, same tables
+    # (comparison launches, after the counts were read)
+    rows = ding.height // world
+    tables, kw = pack_frame(ding, cam, rank * rows, rows)
+    k_rows = render_fwd(*tables, **kw)
+    p_rows = render_fwd_plain(*tables, **kw)
+    result = {
+        "rank": rank, "launches": launches, "losses": losses, "ckpt_writes": len(writes),
+        "step_ms": times, "peak_gib": peak, "held_gib": held, "row0": rank * rows,
+        "rows_equal_frame": bool(torch.equal(k_rows, frame[rank * rows:(rank + 1) * rows])),
+        "bad_px_vs_plain": bad_pixel_fraction(k_rows.cpu().numpy(), p_rows.cpu().numpy()),
+        "max_abs_vs_plain": float((k_rows - p_rows).abs().max()),
+        "light_color": params["light_color"].detach().cpu().tolist(),
+    }
+    if rank == 0:
+        np.save(os.path.join(out_dir, "sharded_frame.npy"), frame.cpu().numpy())
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def run_ranks(world: int, out_dir: str) -> list:
+    """Spawn ``world`` ranks of ``sharded_rank``, each bounded by
+    RANK_TIMEOUT_S; returns their results. A failed or late rank fails."""
+    store = os.path.join(out_dir, "gloo_store")
+    for stale in [store] + [os.path.join(out_dir, f"rank{r}.json") for r in range(world)]:
+        if os.path.exists(stale):
+            os.remove(stale)
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank", str(r),
+                               "--world", str(world), "--store", store, "--out", out_dir],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    outs = []
+    try:
+        deadline = time.monotonic() + RANK_TIMEOUT_S
+        for p in procs:
+            outs.append(p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise RuntimeError(f"sharded rank {r} failed (rc {p.returncode}):\n{out[-4000:]}")
+    results = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            results.append(json.load(f))
+    return results
+
+
 if __name__ == "__main__":
+    if len(sys.argv) > 1 and sys.argv[1] == "--rank":
+        opts = dict(zip(sys.argv[1::2], sys.argv[2::2]))
+        sys.exit(sharded_rank(int(opts["--rank"]), int(opts["--world"]), opts["--store"],
+                              opts["--out"]))
     sys.exit(main())

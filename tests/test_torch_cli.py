@@ -163,10 +163,17 @@ def test_fit_rejects_numpy_backend(capsys):
     assert "not differentiable" in capsys.readouterr().err
 
 
-def test_fit_distributed_not_ported(capsys):
-    rc = main(["fit", scene_path("quadratic"), "--distributed", *CPU])
-    assert rc != 0
-    assert "item 9" in capsys.readouterr().err
+def test_fit_distributed_not_ported(capsys, monkeypatch):
+    """``--distributed`` outside torchrun (no ``WORLD_SIZE``) is a world of
+    one rank: it runs and prints what the fit without it prints (two gloo
+    ranks: tests/test_torch_multihost.py)."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    args = ["fit", scene_path("quadratic"), "--size", "16", "12", "--steps", "2", *CPU]
+    assert main([*args, "--distributed"]) == 0
+    distributed = capsys.readouterr().out
+    assert main(args) == 0
+    assert distributed == capsys.readouterr().out
+    assert re.search(r"^loss: \S+ -> \S+ over 2 steps$", distributed, re.M)
 
 
 def test_fit_camera_and_checkpoint_resume(tmp_path, capsys):

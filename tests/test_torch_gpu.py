@@ -1,7 +1,9 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
 forward (with and without its per-stage aux) and the backward; the plain
-pipeline, the gradient fallback and the CLI on the card; and the fit's
-kernel-route step, its row-block pipeline backward and the soft render.
+pipeline, the gradient fallback and the CLI on the card; the fit's
+kernel-route step, its row-block pipeline backward and the soft render; and
+the row-sharded frame and step over an NCCL group of one rank, and the
+native scene loader on the card.
 
 This file imports nothing of JAX, so it runs on a machine with a GPU and
 without JAX, from the repository root:
@@ -581,3 +583,55 @@ def test_soft_render_on_card_matches_cpu(cuda):
         scale = max(np.abs(ref).max(), 1e-6)
         tol = 2e-3 if np.abs(ref).max() > 1.0 else 2e-2
         assert np.abs(got - ref).max() / scale < tol
+
+
+def test_sharded_world_of_one_over_nccl(cuda, tmp_path):
+    """``render_image_sharded`` over an NCCL process group of one rank
+    (kernel route, one gather) equals the unsharded frame bit for bit, and
+    a sharded train step equals the one without a process group."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from tpu_ray_tracer_torch.diff.inverse import (InverseProblem, extract_params,
+                                                   make_train_step)
+    from tpu_ray_tracer_torch.parallel.sharding import make_mesh, render_image_sharded
+
+    scene = _scene("dingdong", cuda, 128, 72)
+    cam = _camera(POSES[0], cuda)
+    config = ttt.RenderConfig(polish_iters=3, chunk_px=None)
+    with torch.no_grad():
+        single = ttt.render_image_kernel(scene, cam)
+    problem = InverseProblem(dataclasses.replace(scene, light_color=scene.light_color * 0.6),
+                             param_fields=("light_color",), backend="kernel")
+
+    def step(group=None):
+        params = extract_params(problem.scene_template, problem.param_fields)
+        loss = make_train_step(problem, group)(params, problem.optimizer(params), cam, single)
+        return loss, params["light_color"].detach()
+
+    loss, light = step()
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'store'}", rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=60))
+    try:
+        group = make_mesh(cuda).group
+        with torch.no_grad():
+            sharded = render_image_sharded(scene, cam, config, group=group)
+        sharded_loss, sharded_light = step(group)
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(sharded, single)
+    assert sharded_loss == loss and torch.equal(sharded_light, light)
+
+
+def test_native_loader_on_card(cuda):
+    """The native loader's default device is the card, and its dingdong
+    tables there equal the Python loader's."""
+    from tpu_ray_tracer_torch import native
+
+    path = SCENE_DIR / "dingdong.yml"
+    a, b = native.load_from_file(path), ttt.load_from_file(path)
+    for f in ("coefs", "colors", "reflection", "light_p", "light_color", "light_is_spherical",
+              "bg_color", "tan_half_fov"):
+        got = getattr(a, f)
+        assert got.device.type == "cuda" and torch.equal(got, getattr(b, f)), f

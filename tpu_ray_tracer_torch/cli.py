@@ -33,6 +33,7 @@ reference: src/ray-tracer.cpp:160-169, 209-214).
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import os
 import sys
@@ -244,13 +245,23 @@ def cmd_fit(args) -> int:
 
     from . import Camera
     from .diff.inverse import InverseProblem, fit
-    from .render.kernel_backend import MAX_AUX_LIGHTS, render_image_kernel
-    from .render.pipeline import RenderConfig, resolve_bounces
+    from .parallel.sharding import render_image_sharded
+    from .render.kernel_backend import MAX_AUX_LIGHTS
+    from .render.pipeline import RenderConfig
 
+    group, rank = None, 0
     if args.distributed:
-        print("fit: --distributed needs the row-sharded loss across processes "
-              "(ROADMAP Queue 1 item 9), which the port does not have yet", file=sys.stderr)
-        return 2
+        # one process per device under torchrun: the process group from its
+        # environment (NCCL on cuda:LOCAL_RANK, gloo with --device cpu); the
+        # rows are split across the ranks and the gradient all-reduced
+        from .parallel.multihost import initialize_distributed
+        from .parallel.sharding import make_mesh
+
+        if initialize_distributed(device=args.device):
+            atexit.register(torch.distributed.destroy_process_group)
+        mesh = make_mesh(args.device)
+        args.device = mesh.device
+        group, rank = mesh.group, mesh.rank
     scene = _load(args)
     device = scene.coefs.device
     config = RenderConfig(geom_dtype="float32", polish_iters=2, chunk_px=None)
@@ -260,10 +271,10 @@ def cmd_fit(args) -> int:
     if args.target:
         target = torch.as_tensor(np.load(args.target), dtype=torch.float32, device=device)
     else:
-        # self-recovery: the target is the unperturbed scene's frame
+        # self-recovery: the target is the unperturbed scene's frame, each
+        # rank rendering its rows of it (one process renders them all)
         with torch.no_grad():
-            target = render_image_kernel(scene, true_cam, polish_iters=config.polish_iters,
-                                         bounces=resolve_bounces(scene, config))
+            target = render_image_sharded(scene, true_cam, config, backend="kernel", group=group)
 
     fields = args.params.split(",")
     perturbed = _perturb_scene(scene, fields, args.perturb)
@@ -290,7 +301,9 @@ def cmd_fit(args) -> int:
     params, losses = fit(problem, target, camera=camera, steps=args.steps,
                          checkpoint_path=args.checkpoint,
                          checkpoint_every=args.checkpoint_every,
-                         tau_final=args.soft_tau_final)
+                         tau_final=args.soft_tau_final, group=group)
+    if rank != 0:
+        return 0  # every rank holds the same result; rank 0 reports it
     print(f"loss: {losses[0]:.3e} -> {losses[-1]:.3e} over {len(losses)} steps")
     if "camera" in params:
         cam = Camera(*(t.detach() for t in (params["camera"].position,
@@ -426,7 +439,11 @@ def main(argv=None) -> int:
     p.add_argument("--checkpoint", default=None, help="checkpoint .npz path")
     p.add_argument("--checkpoint-every", type=int, default=0)
     p.add_argument("--distributed", action="store_true",
-                   help="multi-process job (not ported yet: ROADMAP Queue 1 item 9)")
+                   help="multi-process job under torchrun (python -m torch.distributed.run "
+                        "--nproc_per_node N -m tpu_ray_tracer_torch.cli fit ... --distributed): "
+                        "one rank per device (cuda:LOCAL_RANK over NCCL; --device cpu over "
+                        "gloo), rows split across the ranks, gradients all-reduced, rank 0 "
+                        "prints and writes checkpoints")
     p.add_argument("--soft-tau", type=float, default=None,
                    help="soft-visibility temperature for surface-coefficient recovery "
                         "across silhouette discontinuities (e.g. 0.15); default: hard render")

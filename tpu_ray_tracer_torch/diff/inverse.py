@@ -17,9 +17,12 @@ computed and differentiated one row block at a time, the block sized from
 the scene's [rays, lights, objects] work; the loss is a sum over pixels, so
 the gradients of the blocks add up to the frame's exactly.
 
-The loss is written over a block of rows [y0, y0 + rows): a row-sharded
-fit adds only a process group that splits the rows and an all-reduce of
-the loss and the gradients.
+The loss is written over a block of rows [y0, y0 + rows), so a row-sharded
+fit (the JAX ``make_loss_fn(problem, mesh)``) adds only a process group:
+rank r takes rows [r * rows_local, (r + 1) * rows_local) of the frame
+(``parallel/sharding.py``), and one all-reduce sums the loss and the
+gradients before the clip and the optimizer step, so that every rank takes
+the same step.
 
 Checkpoints are ``.npz`` files with tree-path keys: ``params/<field>`` (the
 camera as ``params/camera/<position|yaw_deg|pitch_deg>``), ``__step__``, and
@@ -33,9 +36,11 @@ import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models.scene import Scene
 from ..ops import camera as camera_ops
+from ..parallel.sharding import padded_rows, rank_and_size
 from ..render.fwd_kernel import MAX_AUX_LIGHTS
 from ..render.kernel_backend import render_rows_kernel
 from ..render.pipeline import RenderConfig, render_rays, resolve_bounces
@@ -155,12 +160,18 @@ class Loss:
 
     ``block_sse`` renders rows [y0, y0 + rows) and returns their sum of
     squared errors, differentiable; ``__call__`` is the whole frame's loss
-    as one differentiable tensor; ``backward`` computes the loss and
-    accumulates its gradient into the parameters' ``.grad`` one row block at
-    a time (the whole frame in one block on the kernel route), and returns
-    the loss, detached."""
+    as one differentiable tensor, in one process; ``backward`` computes the
+    loss and accumulates its gradient into the parameters' ``.grad`` one row
+    block at a time (the whole span in one block on the kernel route), and
+    returns the loss, detached.
 
-    def __init__(self, problem: InverseProblem):
+    With a process group (``group``, as a ``parallel.sharding.Mesh`` holds
+    it; None is one process) ``backward`` covers this rank's rows ``span``
+    and then all-reduces the loss and every parameter's ``.grad``, which
+    must be None or zero on entry, so that every rank returns the frame's
+    loss and holds the frame's gradient."""
+
+    def __init__(self, problem: InverseProblem, group=None):
         template = problem.scene_template
         self.problem = problem
         # Resolved once from the template: an optimized reflection table
@@ -186,6 +197,13 @@ class Loss:
                        * (1 if problem.soft_tau is None else 2))
             self.block_rows = max(1, min(template.height,
                                          _BLOCK_ELEMENTS // (per_ray * template.width)))
+        self.group = group
+        rank, n = rank_and_size(self.group)
+        rows_local = padded_rows(template.height, n) // n
+        y0 = min(rank * rows_local, template.height)
+        # this rank's rows, clipped to the height: with few rows against many
+        # ranks (3 rows over 4) the last ranks' spans are short or empty
+        self.span = (y0, min(rows_local, template.height - y0))
 
     def render_rows(self, params: dict, camera, y0: int, rows: int, tau=None):
         """Image rows [y0, y0 + rows) -> [rows, W, 3] f32 at the parameters."""
@@ -216,35 +234,57 @@ class Loss:
         return (err * err).sum()
 
     def __call__(self, params: dict, camera, target, tau=None):
+        if self.group is not None:
+            raise ValueError("a row-sharded Loss has no whole-frame tensor in one rank; "
+                             "call backward(), which all-reduces the loss and the gradients")
         return self.block_sse(params, camera, target, 0, self.template.height, tau) / self.n_valid
 
     def backward(self, params: dict, camera, target, tau=None):
+        start, rows = self.span
         total = None
-        for y0 in range(0, self.template.height, self.block_rows):
-            loss = self.block_sse(params, camera, target, y0, self.block_rows, tau) / self.n_valid
+        for y0 in range(start, start + rows, self.block_rows):
+            block = min(self.block_rows, start + rows - y0)
+            loss = self.block_sse(params, camera, target, y0, block, tau) / self.n_valid
             loss.backward()
             total = loss.detach() if total is None else total + loss.detach()
-        return total
+        if self.group is None:
+            return total
+        # The collective comes after the block loop, never inside it: ranks
+        # run different numbers of row blocks (on the pipeline route a short
+        # span runs fewer, and an empty span none), and every rank must call
+        # the same collectives in the same order or the job deadlocks. A rank
+        # that rendered nothing, or whose rows no parameter reached, has
+        # .grad None: it contributes zeros.
+        tensors = param_tensors(params)
+        for t in tensors:
+            if t.grad is None:
+                t.grad = torch.zeros_like(t)
+        if total is None:
+            total = torch.zeros((), dtype=torch.float32, device=target.device)
+        flat = torch.cat([total.reshape(1)] + [t.grad.reshape(-1) for t in tensors])
+        dist.all_reduce(flat, group=self.group)
+        offset = 1
+        for t in tensors:
+            t.grad.copy_(flat[offset:offset + t.numel()].view_as(t.grad))
+            offset += t.numel()
+        return flat[0].to(total.dtype)
 
 
-def make_loss_fn(problem: InverseProblem) -> Loss:
+def make_loss_fn(problem: InverseProblem, group=None) -> Loss:
     """The loss of ``problem``: ``loss(params, camera, target, tau=None)``
     -> 0-d tensor, and ``loss.backward(...)`` for the row-block gradient.
     ``target`` is [H, W, 3] f32 (rows past the height, from ``pad_target``,
-    are ignored); ``tau`` overrides the soft temperature."""
-    return Loss(problem)
+    are ignored); ``tau`` overrides the soft temperature. With a process
+    group the rows are split across its ranks (``Loss``)."""
+    return Loss(problem, group)
 
 
-def _rank() -> int:
-    dist = torch.distributed
-    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
-
-
-def make_train_step(problem: InverseProblem):
+def make_train_step(problem: InverseProblem, group=None):
     """``train_step(params, optimizer, camera, target, tau=None) -> float``:
-    zero the gradients, compute the loss and its gradient (by row blocks),
-    clip to ``grad_clip`` if set, take the optimizer step, return the loss."""
-    loss_fn = make_loss_fn(problem)
+    zero the gradients, compute the loss and its gradient (by row blocks;
+    with a process group, this rank's rows, then the all-reduce), clip to
+    ``grad_clip`` if set, take the optimizer step, return the loss."""
+    loss_fn = make_loss_fn(problem, group)
 
     def train_step(params, optimizer, camera, target, tau=None) -> float:
         optimizer.zero_grad(set_to_none=True)
@@ -257,12 +297,12 @@ def make_train_step(problem: InverseProblem):
     return train_step
 
 
-def pad_target(target, height: int, n_ranks: int = 1) -> torch.Tensor:
-    """Pad a [H, W, 3] target with zero rows to a multiple of ``n_ranks``
-    rows (the row split of a sharded fit; one rank pads nothing)."""
+def pad_target(target, height: int) -> torch.Tensor:
+    """Pad a [H, W, 3] target with zero rows to ``height`` rows (the JAX
+    ``pad_target`` pads to a multiple of the mesh for ``shard_map``; the
+    port's sharded loss clips every rank's rows to the height instead)."""
     target = torch.as_tensor(target)
-    rows = -(-height // n_ranks) * n_ranks
-    pad = rows - target.shape[0]
+    pad = height - target.shape[0]
     if pad > 0:
         target = torch.cat([target, target.new_zeros((pad,) + tuple(target.shape[1:]))])
     return target
@@ -278,8 +318,12 @@ def tau_schedule(tau0: float, tau_final: float, steps: int):
 
 def fit(problem: InverseProblem, target, camera=None, steps: int = 200, log_every: int = 25,
         print_fn=print, checkpoint_path=None, checkpoint_every: int = 0,
-        tau_final: float | None = None):
+        tau_final: float | None = None, group=None):
     """Run the optimization loop; returns (params, losses).
+
+    With a process group (``group``; None is one process) the rows are
+    split across its ranks and every rank takes the same steps; only rank 0
+    prints and writes checkpoints.
 
     ``tau_final`` (soft problems only) anneals the temperature geometrically
     from ``problem.soft_tau`` to ``tau_final`` over the steps. With
@@ -289,7 +333,13 @@ def fit(problem: InverseProblem, target, camera=None, steps: int = 200, log_ever
     On the kernel route the scene statics (the cubics-first slot order and
     posdef) are memoised on the coefficient tensor's version counter, which
     every in-place optimizer step bumps: each step derives them from the
-    current iterate, so a step that turns a quadric cubic re-routes it."""
+    current iterate, so a step that turns a quadric cubic re-routes it. The
+    memo is per rank; all ranks hold equal parameters (the all-reduced
+    gradient is the same on every rank), so each derives the same slot
+    order."""
+    rank, _ = rank_and_size(group)
+    if rank != 0:
+        print_fn = _quiet
     template = problem.scene_template
     dtype, device = problem.config.dtype, template.coefs.device
     if camera is None:
@@ -304,7 +354,9 @@ def fit(problem: InverseProblem, target, camera=None, steps: int = 200, log_ever
             step0 = restored
             print_fn(f"resumed from {checkpoint_path} at step {step0}")
 
-    train_step = make_train_step(problem)
+    train_step = make_train_step(problem, group)
+    # no padding to a multiple of the ranks: every rank's span is clipped to
+    # the height (Loss.span), so rows past it are never read
     target = torch.as_tensor(target, dtype=torch.float32, device=device)
     taus = None
     if tau_final is not None:
@@ -321,9 +373,13 @@ def fit(problem: InverseProblem, target, camera=None, steps: int = 200, log_ever
         if checkpoint_path and checkpoint_every and (step + 1) % checkpoint_every == 0:
             # rank 0 only: every rank holds the same parameters, and the
             # path typically lives on a shared filesystem
-            if _rank() == 0:
+            if rank == 0:
                 save_checkpoint(checkpoint_path, params, optimizer, step + 1)
     return params, losses
+
+
+def _quiet(*args, **kwargs) -> None:
+    """The print function of every rank but rank 0."""
 
 
 # --- checkpoints (.npz with tree-path keys) ---
