@@ -108,11 +108,18 @@ result line):
    card; two CLI ranks run over gloo in tests/test_torch_multihost.py);
 10d. the native C++ loader (``tpu_ray_tracer_torch/native``, built with g++)
    puts all 8 scenes on the card with tables equal to the Python loader's,
-   and its dingdong renders phase 3's frame bit for bit.
+   and its dingdong renders phase 3's frame bit for bit;
+11. the port's bench, ``python -m tpu_ray_tracer_torch.bench``, as a child
+   process at full size on the card, bounded by a timeout: exit 0, a last
+   line that parses as JSON with the headline, all 12 stages measured (none
+   failed or skipped), all 8 scenes within their parity gates, the ``cuda``
+   forward backend, and the kernels' launches over the run equal to what
+   its stage list implies (``bench_launches``); the headline and the
+   dingdong figures are printed.
 
 The last lines are the card's name and power limit, a {"kernels": [...]}
 line (each kernel's launches on the main paths, the sharded ones of 10a and
-of both ranks of 10b included, its time, its plain
+of both ranks of 10b and the bench's of 11 included, its time, its plain
 version's, its bound and share of the bound on dingdong 1280x720; no single
 PyTorch call computes either function, so ``library_ms`` is null), and
 {"ok": true, "device": {...}}.
@@ -145,6 +152,8 @@ FIT_STEPS = 5          # 9a: the CLI's fit on dingdong; 10a-10c: the sharded fit
 FIT_TIMED_STEPS = 8    # 9a: the train step timed alone
 RANK_TIMEOUT_S = 300   # 10b, 10c: each spawned process
 SHARDED_FIT_RTOL = 1e-5  # 10b against 10a: losses and light colours, relative
+BENCH_TIMEOUT_S = 600  # 11: the bench's child process
+BENCH_FRAMES = 32      # 11: the bench's default sweep (TRT_BENCH_FRAMES)
 DIFF_FIELDS = ("coefs", "colors", "reflection", "light_p", "light_color", "bg_color",
                "tan_half_fov")
 
@@ -164,6 +173,20 @@ def nvcc_version(nvcc: str) -> str:
     out = subprocess.run([nvcc, "--version"], capture_output=True, text=True,
                          check=True, timeout=60).stdout
     return out.strip().splitlines()[-1]
+
+
+def bench_launches(frames: int) -> dict:
+    """The kernels' launches over one run of the bench, from its stage list.
+    Each of its 8 forward stages (reflection_test's at 5 bounces, the others
+    without a chain) launches render_fwd for one warm-up frame, the sweep's
+    frames, the parity frame and the sweep again alone; each of its 4
+    forward+backward stages (dingdong, monkey_saddle, reflection_test,
+    20spheres) launches render_fwd with aux and render_bwd once each for a
+    warm-up frame, the sweep's frames and the sweep again alone."""
+    fwd, fwdbwd = 2 * frames + 2, 2 * frames + 1
+    return {"render_fwd": 8 * fwd + 4 * fwdbwd, "render_fwd.save_aux": 4 * fwdbwd,
+            "render_bwd": 4 * fwdbwd, "render_fwd.main": 7 * fwd + 3 * fwdbwd,
+            "render_fwd.main_chain": fwd + fwdbwd, "render_fwd.generic": 0}
 
 
 def main() -> int:
@@ -946,6 +969,44 @@ def main() -> int:
     log(f"[native] {len(scenes)} scenes on the card equal to the Python loader's tables; "
         f"dingdong frame equal to phase 3's ({native.build_library()})")
     log(f"[sharded] phase 10 in {time.perf_counter() - t_sharded:.1f} s")
+
+    # --- 11. the port's bench, at full size, as its user runs it ---
+    t_bench = time.perf_counter()
+    env = {k: v for k, v in os.environ.items() if not k.startswith("TRT_BENCH_")}
+    proc = subprocess.run([sys.executable, "-m", "tpu_ray_tracer_torch.bench"], cwd=REPO,
+                          env={**env, "PYTHONPATH": REPO}, capture_output=True, text=True,
+                          timeout=BENCH_TIMEOUT_S)
+    bench_s = time.perf_counter() - t_bench
+    with open(os.path.join(out_dir, "bench.err"), "w") as f:
+        f.write(proc.stderr)
+    try:
+        result = json.loads(proc.stdout.strip().splitlines()[-1])
+    except (IndexError, json.JSONDecodeError):
+        result = {}
+    aux = result.get("aux", {})
+    log(f"[bench] {json.dumps(result)}")
+    want_launches = bench_launches(BENCH_FRAMES)
+    bench_counts = aux.get("launches", {})
+    parity_bench = aux.get("parity_bad_px_fraction", {})
+    problems = [what for what, bad in (
+        (f"exit {proc.returncode}", proc.returncode != 0),
+        ("no headline line", result.get("metric") != "mrays_per_s_fwd_dingdong_1280x720"),
+        (f"failed {aux.get('failed')}", "failed" in aux),
+        (f"skipped {aux.get('skipped')}", "skipped" in aux or "pending" in aux),
+        (f"parity {parity_bench}", set(parity_bench) != set(PARITY_GATES) or any(
+            v > PARITY_GATES[k] for k, v in parity_bench.items())),
+        (f"forward_backend {aux.get('forward_backend')}", aux.get("forward_backend") != "cuda"),
+        (f"launches {bench_counts}, expected {want_launches}",
+         any(bench_counts.get(k) != v for k, v in want_launches.items())),
+    ) if bad]
+    if problems:
+        raise RuntimeError(f"bench: {'; '.join(problems)}\n{proc.stderr[-4000:]}")
+    log(f"[bench] {result['metric']} {result['value']} {result['unit']} (vs_baseline "
+        f"{result['vs_baseline']}); dingdong: frame_ms_fwd {aux['frame_ms_fwd_dingdong']}, "
+        f"kernel_ms_fwd {aux['kernel_ms_fwd_dingdong']}, frame_ms_fwd_bwd "
+        f"{aux['frame_ms_fwd_bwd_dingdong']}, kernel_ms_bwd {aux['kernel_ms_bwd_dingdong']}, "
+        f"parity {parity_bench['dingdong']}; launches {bench_counts}; phase 11 in "
+        f"{bench_s:.1f} s ({smi})")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     # the sharded paths' launches: 10a in this process, 10b in both ranks
@@ -958,10 +1019,12 @@ def main() -> int:
         "source": "tpu_ray_tracer_torch/csrc/render_fwd.cu",
         "replaces": "tpu_ray_tracer/render/pallas_backend.py:978",
         "launches": (main_launches + grad_launches["render_fwd"] + cli_launches
-                     + fallback_launches + fit_launches["render_fwd"] + sharded_fwd),
+                     + fallback_launches + fit_launches["render_fwd"] + sharded_fwd
+                     + bench_counts["render_fwd"]),
         "launches_by_path": {"forward": main_launches, "gradient": grad_launches["render_fwd"],
                              "cli": cli_launches, "fallback": fallback_launches,
-                             "fit": fit_launches["render_fwd"], "sharded": sharded_fwd},
+                             "fit": fit_launches["render_fwd"], "sharded": sharded_fwd,
+                             "bench": bench_counts["render_fwd"]},
         "max_abs_err": worst_abs,
         "worst_bad_px_vs_plain": worst_frac,
         "ms": kernel_ms,
@@ -978,9 +1041,11 @@ def main() -> int:
         "route": "cuda",
         "source": "tpu_ray_tracer_torch/csrc/render_bwd.cu",
         "replaces": "tpu_ray_tracer/render/pallas_backend.py:1613",
-        "launches": grad_launches["render_bwd"] + fit_launches["render_bwd"] + sharded_bwd,
+        "launches": (grad_launches["render_bwd"] + fit_launches["render_bwd"] + sharded_bwd
+                     + bench_counts["render_bwd"]),
         "launches_by_path": {"gradient": grad_launches["render_bwd"],
-                             "fit": fit_launches["render_bwd"], "sharded": sharded_bwd},
+                             "fit": fit_launches["render_bwd"], "sharded": sharded_bwd,
+                             "bench": bench_counts["render_bwd"]},
         "max_abs_err": bwd_worst_abs,
         "worst_group_relerr_vs_plain": bwd_worst_rel,
         "ms": bwd_ms,

@@ -2,8 +2,8 @@
 forward (with and without its per-stage aux) and the backward; the plain
 pipeline, the gradient fallback and the CLI on the card; the fit's
 kernel-route step, its row-block pipeline backward and the soft render; and
-the row-sharded frame and step over an NCCL group of one rank, and the
-native scene loader on the card.
+the row-sharded frame and step over an NCCL group of one rank, the native
+scene loader on the card, and the port's bench at full size.
 
 This file imports nothing of JAX, so it runs on a machine with a GPU and
 without JAX, from the repository root:
@@ -635,3 +635,32 @@ def test_native_loader_on_card(cuda):
               "bg_color", "tan_half_fov"):
         got = getattr(a, f)
         assert got.device.type == "cuda" and torch.equal(got, getattr(b, f)), f
+
+
+def test_bench_on_card(cuda):
+    """``python -m tpu_ray_tracer_torch.bench`` at full size on the card:
+    exit 0, all 12 stages measured (none failed or skipped) on the kernel
+    backend, every scene within its parity gate, both kernels launched and
+    each timed alone."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from tpu_ray_tracer_torch.parity import PARITY_GATES
+
+    repo = SCENE_DIR.parent
+    env = {k: v for k, v in os.environ.items() if not k.startswith("TRT_BENCH_")}
+    proc = subprocess.run([sys.executable, "-m", "tpu_ray_tracer_torch.bench"], cwd=repo,
+                          env={**env, "PYTHONPATH": str(repo)}, capture_output=True, text=True,
+                          timeout=900)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    aux = line["aux"]
+    assert line["metric"] == "mrays_per_s_fwd_dingdong_1280x720" and line["value"] > 0
+    assert aux["forward_backend"] == "cuda" and not {"failed", "pending", "skipped"} & set(aux)
+    assert set(aux["parity_bad_px_fraction"]) == set(PARITY_GATES)
+    assert all(v <= PARITY_GATES[k] for k, v in aux["parity_bad_px_fraction"].items())
+    assert aux["launches"]["render_fwd"] > 0 and aux["launches"]["render_bwd"] > 0
+    assert len([k for k in aux if k.startswith("kernel_ms_fwd_")]) == 8
+    assert len([k for k in aux if k.startswith("kernel_ms_bwd_")]) == 4
