@@ -25,10 +25,14 @@ result line):
    pixels differing by more than 2/255 per frame;
 6. timing: CUDA events over 32 frames of dingdong 1280x720 at yaws
    90 + 1e-3 k after warm-up (the kernel alone as device time of its
-   launches run back to back; the whole call and the plain version with the
-   host's gaps), and
-   the kernel alone per scene, each beside its bound
-   (tpu_ray_tracer_torch/render/bounds.py, counted from that frame's aux);
+   launches run back to back, proven by ``timed_ms``'s gate; the whole call
+   and the plain version with the host's gaps), and the kernel alone per
+   scene, each beside its bound (tpu_ray_tracer_torch/render/bounds.py,
+   counted from that frame's aux). The gate's check: the kernel alone over
+   32 and 256 frames of the sweep, with the host quiet and with a Python
+   thread spinning for the GIL (``busy_host``), each printed with its gate
+   (sleep, reruns, the host's enqueue time a call); all four within 2% of
+   the quiet 32-frame reading;
 7a. the main path with a gradient: dingdong 1280x720 through
    ``render_image_kernel`` with every differentiable scene and camera
    tensor requiring grad, then ``loss.backward()``, the counts set to 0
@@ -46,7 +50,10 @@ result line):
    ``render_fwd(save_aux=True)``, ``render_bwd`` alone, the whole fwd+bwd
    call, and ``render_bwd_plain`` once, each kernel beside its bound
    (counted from the timed frames' own aux); the backward alone on
-   20spheres and reflection_test beside its bound;
+   20spheres and reflection_test beside its bound, and beside it the bench's
+   reading of the same kernel (the sweep's 32 frames, the cotangent of
+   mean(img^2)) crossed with this one (one frame, a linear ramp), and the
+   bench's 128-frame sweep beside its last 32 poses alone;
 8a. the command line in-process: ``render scenes/dingdong.yml --backend
    kernel --check`` (the counts set to 0 just before: one render_fwd launch,
    of the main instantiation; the frame within dingdong's gate), then
@@ -90,7 +97,10 @@ result line):
    route) on dingdong 1280x720 equals phase 3's frame bit for bit, and 5
    sharded kernel-route fit steps (light colours x0.6, polish 2) give the
    losses and parameters of ``make_train_step`` without a process group,
-   bit for bit; each step's time by CUDA events and its peak memory;
+   bit for bit; each step's time by CUDA events and its peak memory; then
+   torch.profiler over 5 steps without the group and with it, in turns,
+   printing each step's host and device time and the operations whose
+   count the group changes: a group of one must run no all-reduce;
 10b. two ranks on the one card, in two spawned processes of this script
    (``--rank``; gloo on CUDA tensors, since NCCL refuses two ranks on one
    device; each child bounded by a timeout): the stitched frame equals phase
@@ -135,6 +145,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -146,10 +157,14 @@ MAX_BAD_PIPELINE = 0.01   # pipeline vs golden (tests/test_golden.py's limit)
 MAX_BAD_PIPELINE_VS_K1 = 0.005  # pipeline vs K1 (tests/test_torch_render.py's)
 OFF_POSE = ((0.0, 2.0, -3.0), 75.0, -12.0)
 TIMED_FRAMES = 32
+GATE_FRAMES = 256      # 6: the long sweep of the device-only reading's check
+GATE_RTOL = 0.02       # 6: each of its four readings against the quiet 32-frame one
+K2_LONG_SWEEP = 128    # 7e: the bench's sweep at TRT_BENCH_FRAMES=128
 PLAIN_FRAMES = 3
 KERNELS = ("render_fwd", "render_bwd")
 FIT_STEPS = 5          # 9a: the CLI's fit on dingdong; 10a-10c: the sharded fit
 FIT_TIMED_STEPS = 8    # 9a: the train step timed alone
+PROFILED_STEPS = 5     # 10a: the world-1 step under torch.profiler, with and without the group
 RANK_TIMEOUT_S = 300   # 10b, 10c: each spawned process
 SHARDED_FIT_RTOL = 1e-5  # 10b against 10a: losses and light colours, relative
 BENCH_TIMEOUT_S = 600  # 11: the bench's child process
@@ -173,6 +188,26 @@ def nvcc_version(nvcc: str) -> str:
     out = subprocess.run([nvcc, "--version"], capture_output=True, text=True,
                          check=True, timeout=60).stdout
     return out.strip().splitlines()[-1]
+
+
+@contextlib.contextmanager
+def busy_host():
+    """A Python thread of this process spinning while the block runs: it
+    contends for the GIL, so every enqueue of the block waits for it."""
+    stop = threading.Event()
+
+    def spin():
+        n = 0
+        while not stop.is_set():
+            n += 1
+
+    thread = threading.Thread(target=spin, daemon=True)
+    thread.start()
+    try:
+        yield
+    finally:
+        stop.set()
+        thread.join()
 
 
 def bench_launches(frames: int) -> dict:
@@ -308,14 +343,35 @@ def main() -> int:
 
     # --- 6. timing (dingdong 1280x720, the JAX bench's yaw sweep) ---
     n_px = ding.width * ding.height
-    yaws = (90.0 + 1e-3 * torch.arange(TIMED_FRAMES, dtype=torch.float32)).tolist()
+    sweep_yaws = (90.0 + 1e-3 * torch.arange(GATE_FRAMES, dtype=torch.float32)).tolist()
+    yaws = sweep_yaws[:TIMED_FRAMES]
     cams = [camera(yaw=y) for y in yaws]
-    frames = [pack_frame(ding, c, 0, ding.height) for c in cams]
+    sweep = [pack_frame(ding, camera(yaw=y), 0, ding.height) for y in sweep_yaws]
+    frames = sweep[:TIMED_FRAMES]
     for tables, kw in frames[:2]:  # warm-up
         render_fwd(*tables, **kw)
         render_fwd_plain(*tables, **kw)
-    kernel_ms = timed_ms(lambda k: render_fwd(*frames[k][0], **frames[k][1]), TIMED_FRAMES,
-                         device_only=True)
+    # the device-only reading's gate: K1 at two sweep lengths, with the host
+    # quiet and with a Python thread spinning for the GIL, so that every
+    # enqueue waits; all four within GATE_RTOL of the first
+    gate_ms = {}
+    for n, busy in ((TIMED_FRAMES, False), (GATE_FRAMES, False), (TIMED_FRAMES, True),
+                    (GATE_FRAMES, True)):
+        with busy_host() if busy else contextlib.nullcontext():
+            ms = timed_ms(lambda k: render_fwd(*sweep[k][0], **sweep[k][1]), n,
+                          device_only=True)
+        gate = timed_ms.last_gate
+        gate_ms[n, busy] = ms
+        log(f"[gate] K1 dingdong 1280x720 {n} frames, host {'busy' if busy else 'quiet'}: "
+            f"{ms:.5f} ms/frame; gate sleep {gate.cycles} cycles, {gate.reruns} reruns; host "
+            f"enqueue {gate.enqueue_ms:.4f} ms a call ({smi})")
+    kernel_ms = gate_ms[TIMED_FRAMES, False]
+    off = {key: ms / kernel_ms - 1 for key, ms in gate_ms.items()}
+    log("[gate] against the quiet 32-frame reading: " + ", ".join(
+        f"{n} {'busy' if busy else 'quiet'} {d:+.4%}" for (n, busy), d in off.items()))
+    if any(abs(d) > GATE_RTOL for d in off.values()):
+        raise RuntimeError(f"device-only K1 readings differ by more than {GATE_RTOL:.0%}: "
+                           f"{gate_ms}")
     call_ms = timed_ms(lambda k: ttt.render_image_kernel(ding, cams[k]), TIMED_FRAMES)
     plain_ms = timed_ms(lambda k: render_fwd_plain(*frames[k][0], **frames[k][1]),
                         PLAIN_FRAMES)
@@ -483,6 +539,54 @@ def main() -> int:
             f"{bound:.4f} ms ({by}, {wk['ops'] / (scene.width * scene.height):.0f} ops/px), "
             f"share {bound / ms:.3f}, hit share "
             f"{float((frame[2][1][0] >= 0).float().mean()):.4f} ({smi})")
+        # The bench's reading of this kernel (kernel_ms_bwd_<scene>) takes the
+        # sweep's poses, each with its own aux, and the cotangent of
+        # mean(img^2), 2 img / N; the reading above takes one frame's aux and
+        # a linear ramp. Crossing the two splits the gap between them into
+        # its inputs' size (one frame's stays in L2, 32 do not) and the
+        # cotangent's values; the bench's 128-frame sweep and its last 32
+        # poses split a change with the sweep's length into its count and
+        # its poses. Each reading twice, in mirrored order. Then each pose of
+        # the 32-frame sweep alone, repeated as the one frame above is: their
+        # mean against the sweep's reading is the inputs' size at equal poses.
+        sweep_in, sweep_aux, sweep_cot = [], [], []
+        for y in sweep_yaws[:K2_LONG_SWEEP]:
+            s_tables, s_kw = pack_frame(scene, camera(yaw=y), 0, scene.height)
+            s_image, *s_aux = render_fwd(*s_tables, **s_kw, save_aux=True)
+            sweep_in.append(tuple(s_tables[i] for i in (0, 2, 3, 4, 7)))
+            sweep_aux.append(s_aux)
+            sweep_cot.append((2.0 / s_image.numel()) * s_image)
+        late = K2_LONG_SWEEP - TIMED_FRAMES
+        picks = {"one frame, ramp (7e's)": (TIMED_FRAMES, lambda k: (0, args[5])),
+                 "one frame, 2 img/N": (TIMED_FRAMES, lambda k: (0, sweep_cot[0])),
+                 "sweep, ramp": (TIMED_FRAMES, lambda k: (k, args[5])),
+                 "sweep, 2 img/N (the bench's)": (TIMED_FRAMES, lambda k: (k, sweep_cot[k])),
+                 f"poses {late}-{K2_LONG_SWEEP - 1}, 2 img/N": (
+                     TIMED_FRAMES, lambda k: (late + k, sweep_cot[late + k])),
+                 f"sweep of {K2_LONG_SWEEP}, 2 img/N": (K2_LONG_SWEEP,
+                                                        lambda k: (k, sweep_cot[k]))}
+        k2_gap = {label: [] for label in picks}
+
+        def k2_call(pick):
+            def call(k):
+                f, cot = pick(k)
+                return render_bwd(*sweep_in[f], cot, *sweep_aux[f], **bkw)
+            return call
+
+        for label in [*picks, *reversed(picks)]:
+            n, pick = picks[label]
+            k2_gap[label].append(timed_ms(k2_call(pick), n, device_only=True))
+        log(f"[k2-gap] {name} {scene.width}x{scene.height} render_bwd: "
+            + "; ".join(f"{label} {a:.5f}, {b:.5f} ms" for label, (a, b) in k2_gap.items())
+            + f" ({smi})")
+        alone = [timed_ms(k2_call(lambda k, f=f: (f, sweep_cot[f])), TIMED_FRAMES,
+                          device_only=True) for f in range(TIMED_FRAMES)]
+        log(f"[k2-gap] {name} each pose of the sweep alone, 2 img/N: mean "
+            f"{sum(alone) / len(alone):.5f} ms, pose {alone.index(min(alone))} "
+            f"{min(alone):.5f}, pose {alone.index(max(alone))} {max(alone):.5f}; poses 0-3 "
+            f"{', '.join(f'{a:.5f}' for a in alone[:4])}; poses 28-31 "
+            f"{', '.join(f'{a:.5f}' for a in alone[-4:])} ({smi})")
+        del sweep_in, sweep_aux, sweep_cot
     # --- 8a. the command line, in-process ---
     from tpu_ray_tracer_torch import cli
     from tpu_ray_tracer_torch.models import light as tlight
@@ -881,7 +985,39 @@ def main() -> int:
     sharded_launches = {"render_fwd": render_fwd.launches,
                         "render_fwd_save_aux": render_fwd.launches_save_aux,
                         "render_bwd": render_bwd.launches}
+    # where the world-1 step's time goes: torch.profiler over the same steps
+    # without the group and with it, in turns (none, nccl, nccl, none)
+    profiles = {"none": [], "nccl": []}
+    for label in ("none", "nccl", "nccl", "none"):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            _, prof_times, _ = fit_steps(ding_problem, ding_target, PROFILED_STEPS,
+                                         group=group if label == "nccl" else None)
+        per_key = {e.key: (e.count / PROFILED_STEPS, e.self_cpu_time_total / PROFILED_STEPS,
+                           e.self_device_time_total / PROFILED_STEPS)
+                   for e in prof.key_averages()}
+        profiles[label].append(per_key)
+        calls, host_us, device_us = (sum(v[i] for v in per_key.values()) for i in range(3))
+        log(f"[profile] world-1 fit step, group {label}: step ms (profiled) "
+            f"{', '.join(f'{t:.4f}' for t in prof_times)}; per step: self host {host_us:.1f} "
+            f"us, self device {device_us:.1f} us, {calls:.0f} events ({smi})")
+
+    def mean_of(runs, key):
+        return [sum(run.get(key, (0, 0, 0))[i] for run in runs) / len(runs) for i in range(3)]
+
+    keys = set().union(*profiles["none"], *profiles["nccl"])
+    extra = sorted(((k, mean_of(profiles["nccl"], k), mean_of(profiles["none"], k))
+                    for k in keys), key=lambda t: t[2][1] - t[1][1])
+    for k, (n_g, cpu_g, dev_g), (n_0, cpu_0, dev_0) in extra:
+        if n_g != n_0:
+            log(f"[profile]   {k}: per step with the group {n_g:g} calls, {cpu_g:.1f} us host, "
+                f"{dev_g:.1f} us device; without {n_0:g}, {cpu_0:.1f} us, {dev_0:.1f} us")
     dist.destroy_process_group()
+    # a group of one all-reduces nothing, as JAX's psum over one device
+    reduced = sorted({k for run in profiles["nccl"] for k in run
+                      if "allreduce" in k.replace("_", "").lower()})
+    if reduced:
+        raise RuntimeError(f"sharded world 1: the fit step ran a collective: {reduced}")
     log(f"[sharded] world 1 (NCCL) dingdong 1280x720: launches {sharded_launches}; frame "
         f"{'equals' if np.array_equal(sharded_image, image) else 'DIFFERS FROM'} phase 3's; "
         f"losses {sharded_losses} against {unsharded_losses} without a process group")

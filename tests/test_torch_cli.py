@@ -163,7 +163,7 @@ def test_fit_rejects_numpy_backend(capsys):
     assert "not differentiable" in capsys.readouterr().err
 
 
-def test_fit_distributed_not_ported(capsys, monkeypatch):
+def test_fit_distributed_world_of_one(capsys, monkeypatch):
     """``--distributed`` outside torchrun (no ``WORLD_SIZE``) is a world of
     one rank: it runs and prints what the fit without it prints (two gloo
     ranks: tests/test_torch_multihost.py)."""

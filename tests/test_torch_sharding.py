@@ -224,6 +224,39 @@ def test_one_process_needs_no_collective(tmp_path):
         torch.distributed.destroy_process_group()
 
 
+@pytest.mark.parametrize("backend", ["torch", "kernel"])
+def test_group_of_one_runs_no_collective(tmp_path, monkeypatch, backend):
+    """A sharded loss over a group of one rank all-reduces nothing (the JAX
+    package's psum over a one-device mesh is dropped by XLA): its train
+    steps give the losses and parameters of the steps without a group, bit
+    for bit, with every collective made to raise."""
+    problem = inverse.InverseProblem(load("cayley", 24, 16), CONFIG, ("light_color", "coefs"),
+                                     backend=backend)
+    target = ttt.render_image(load("cayley", 24, 16), pose(), CONFIG).detach()
+
+    def steps(group):
+        params = inverse.extract_params(problem.scene_template, problem.param_fields)
+        optimizer, step = problem.optimizer(params), inverse.make_train_step(problem, group)
+        return [step(params, optimizer, pose(), target) for _ in range(3)], params
+
+    want_losses, want = steps(None)
+    torch.distributed.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}",
+                                         rank=0, world_size=1)
+    try:
+        group = sharding.make_mesh("cpu").group
+
+        def refuse(*args, **kwargs):
+            raise AssertionError("a collective in a group of one")
+
+        monkeypatch.setattr(torch.distributed, "all_reduce", refuse)
+        losses, got = steps(group)
+    finally:
+        torch.distributed.destroy_process_group()
+    assert losses == want_losses
+    for name in want:
+        assert torch.equal(got[name], want[name]), name
+
+
 def test_render_image_sharded_checks():
     """Unknown backends raise, as in the JAX package; a call that would
     record a gradient raises rather than drop it at the gather; in one

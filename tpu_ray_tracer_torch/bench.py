@@ -29,11 +29,13 @@ too; each is reduced to a sum kept on the device. CUDA events bracket the
 sweep and the process synchronizes once after it, so host gaps between
 calls count and no frame waits on the host. Beside each whole-call reading,
 ``kernel_ms_fwd_<scene>`` and ``kernel_ms_bwd_<scene>`` give the kernel
-alone: the sweep's launches run back to back, queued behind a sleep kernel
-(``kernel_bench.timed_ms``). ``launches`` counts the kernels' launches over
-the run, so a run that missed a kernel shows it. On the CPU
-(``--device cpu``) every call runs the kernels' plain versions, the host
-clock times the sweeps, and there is no kernel reading.
+alone: the device time of the sweep's launches, proven to have run back to
+back (``kernel_bench.timed_ms``, whose gate reruns a reading that host gaps
+could have entered). ``launches`` counts the kernels' launches over the
+run, so a run that missed a kernel shows it; it leaves out the launches of
+each kernel reading's sizing pass and discarded runs, which go to stderr.
+On the CPU (``--device cpu``) every call runs the kernels' plain versions,
+the host clock times the sweeps, and there is no kernel reading.
 
 Parity is a gate: each forward stage's frame at the reference pose against
 the f64 golden ``bench_goldens/<scene>.npz`` within
@@ -159,6 +161,25 @@ def _sweep_s(device, body):
     return start.elapsed_time(end) / 1e3, out
 
 
+def _kernel_ms(progress: _Progress, fn, frames: int, extra_launches: dict) -> float:
+    """``timed_ms(fn, frames, device_only=True)``. Its sizing pass and
+    discarded runs call ``fn`` ``Gate.extra_calls`` more times, each
+    launching what a call of the accepted run does: those launches are added
+    to ``extra_launches`` (by ``launch_counts`` key) and logged."""
+    before = launch_counts()
+    ms = timed_ms(fn, frames, device_only=True)
+    gate = timed_ms.last_gate
+    after = launch_counts()
+    added = {k: (after[k] - before[k]) * gate.extra_calls // (frames + gate.extra_calls)
+             for k in after}
+    for k, v in added.items():
+        extra_launches[k] = extra_launches.get(k, 0) + v
+    left_out = {k: v for k, v in added.items() if v}
+    progress.log(f"gate: sleep {gate.cycles} cycles, {gate.reruns} reruns, host enqueue "
+                 f"{gate.enqueue_ms:.4f} ms a call; launches left out of the count: {left_out}")
+    return ms
+
+
 def _load_golden(progress: _Progress, name: str, scene, scale: float) -> np.ndarray:
     """The committed f16 golden when unscaled and of the scene's shape, else
     the port's f64 NumPy oracle, live."""
@@ -173,10 +194,11 @@ def _load_golden(progress: _Progress, name: str, scene, scale: float) -> np.ndar
 
 
 def _bench_fwd(progress: _Progress, name: str, scene, *, frames: int, scale: float,
-               bounces: int = 0) -> dict:
+               extra_launches: dict, bounces: int = 0) -> dict:
     """Forward throughput over the sweep plus the parity frame at the
     reference pose (frames + 1 timed calls), the kernel alone over the
-    sweep's tables on the card, and the parity frame's bad-pixel fraction."""
+    sweep's tables on the card (``_kernel_ms``), and the parity frame's
+    bad-pixel fraction."""
     device = scene.coefs.device
     scene32 = scene.astype(torch.float32)
     n_px = scene.width * scene.height
@@ -203,8 +225,9 @@ def _bench_fwd(progress: _Progress, name: str, scene, *, frames: int, scale: flo
         if device.type == "cuda":
             packed = [pack_frame(scene32, c, 0, scene.height, polish_iters=POLISH_ITERS,
                                  bounces=bounces) for c in cams]
-            out["kernel_ms_fwd"] = timed_ms(lambda k: render_fwd(*packed[k][0], **packed[k][1]),
-                                            frames, device_only=True)
+            out["kernel_ms_fwd"] = _kernel_ms(
+                progress, lambda k: render_fwd(*packed[k][0], **packed[k][1]), frames,
+                extra_launches)
             progress.log(f"{name}: render_fwd alone {out['kernel_ms_fwd']:.4f} ms/frame")
 
     progress.stage = f"{name}:parity"
@@ -215,11 +238,11 @@ def _bench_fwd(progress: _Progress, name: str, scene, *, frames: int, scale: flo
 
 
 def _bench_fwdbwd(progress: _Progress, name: str, scene, *, frames: int,
-                  bounces: int = 0) -> dict:
+                  extra_launches: dict, bounces: int = 0) -> dict:
     """Forward+backward throughput over the sweep (``frame_grads`` of the
     coefficients and light colours, each frame's gradients reduced to one
     device scalar), and the backward kernel alone on the sweep's aux on the
-    card.
+    card (``_kernel_ms``).
 
     The JAX bench fixes the kernel's degree partition from the concrete
     scene before ``jax.grad`` (where the coefficients are abstract); here
@@ -257,8 +280,9 @@ def _bench_fwdbwd(progress: _Progress, name: str, scene, *, frames: int,
                                *aux),
                               dict(width=kw["width"], height=kw["height"], rows=kw["rows"],
                                    n_lights=tables[4].shape[0], bounces=kw["bounces"])))
-            out["kernel_ms_bwd"] = timed_ms(lambda k: render_bwd(*calls[k][0], **calls[k][1]),
-                                            frames, device_only=True)
+            out["kernel_ms_bwd"] = _kernel_ms(
+                progress, lambda k: render_bwd(*calls[k][0], **calls[k][1]), frames,
+                extra_launches)
         progress.log(f"{name}: render_bwd alone {out['kernel_ms_bwd']:.4f} ms/frame")
     return out
 
@@ -352,12 +376,15 @@ def _emit(results: dict, pending, skipped, elapsed_s: float, run: dict) -> None:
     }), flush=True)
 
 
-def stages(scene_for, frames: int, scale: float, progress: _Progress) -> list:
+def stages(scene_for, frames: int, scale: float, progress: _Progress,
+           extra_launches: dict) -> list:
     """The JAX bench's 12 stages in its order, headline first:
     (stage name, scene key, callable)."""
     refl = "reflection_test"
-    fwd = functools.partial(_bench_fwd, progress, frames=frames, scale=scale)
-    fwdbwd = functools.partial(_bench_fwdbwd, progress, frames=frames)
+    fwd = functools.partial(_bench_fwd, progress, frames=frames, scale=scale,
+                            extra_launches=extra_launches)
+    fwdbwd = functools.partial(_bench_fwdbwd, progress, frames=frames,
+                               extra_launches=extra_launches)
     out = []
     for name in ("dingdong", "monkey_saddle"):
         out.append((f"{name}.fwd", name, lambda n=name: fwd(n, scene_for(n))))
@@ -390,14 +417,16 @@ def _run(progress: _Progress, device, frames: int, budget_s: float, scale: float
         return scenes[name]
 
     start_counts = launch_counts()
+    extra_launches = {}  # the kernel readings' sizing passes and discarded runs
     results = {}
 
     def emit(pending, skipped):
         now = launch_counts()
         _emit(results, pending, skipped, progress.elapsed(),
-              {"launches": {k: now[k] - start_counts[k] for k in now}, **info})
+              {"launches": {k: now[k] - start_counts[k] - extra_launches.get(k, 0)
+                            for k in now}, **info})
 
-    stage_list = stages(scene_for, frames, scale, progress)
+    stage_list = stages(scene_for, frames, scale, progress, extra_launches)
     skipped = []
     for i, (stage_name, scene_key, run) in enumerate(stage_list):
         remaining = [s[0] for s in stage_list[i + 1:]]

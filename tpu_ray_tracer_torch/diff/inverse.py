@@ -169,7 +169,9 @@ class Loss:
     it; None is one process) ``backward`` covers this rank's rows ``span``
     and then all-reduces the loss and every parameter's ``.grad``, which
     must be None or zero on entry, so that every rank returns the frame's
-    loss and holds the frame's gradient."""
+    loss and holds the frame's gradient. A group of one rank runs no
+    collective, as the JAX package's ``psum`` over a one-device mesh, which
+    XLA drops."""
 
     def __init__(self, problem: InverseProblem, group=None):
         template = problem.scene_template
@@ -199,6 +201,7 @@ class Loss:
                                          _BLOCK_ELEMENTS // (per_ray * template.width)))
         self.group = group
         rank, n = rank_and_size(self.group)
+        self.n_ranks = n
         rows_local = padded_rows(template.height, n) // n
         y0 = min(rank * rows_local, template.height)
         # this rank's rows, clipped to the height: with few rows against many
@@ -247,7 +250,7 @@ class Loss:
             loss = self.block_sse(params, camera, target, y0, block, tau) / self.n_valid
             loss.backward()
             total = loss.detach() if total is None else total + loss.detach()
-        if self.group is None:
+        if self.n_ranks == 1:  # the sum over one rank is its own
             return total
         # The collective comes after the block loop, never inside it: ranks
         # run different numbers of row blocks (on the pipeline route a short

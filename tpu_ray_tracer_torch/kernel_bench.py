@@ -24,6 +24,8 @@ import re
 import shutil
 import subprocess
 import sys
+import time
+from typing import NamedTuple
 
 import torch
 
@@ -49,21 +51,100 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+# The sleep kernel that a device-only reading queues ahead of its calls, in
+# SM clock cycles (``torch.cuda._sleep``): at least GATE_MIN_CYCLES (~10 ms
+# at the H100's top clock of 1.98 GHz), doubled on each rerun up to
+# GATE_MAX_CYCLES (~8 s). The cap covers a host whose GIL another Python
+# thread holds: each release of the GIL inside a launch can then cost the
+# 5 ms switch interval, and 256 render_fwd calls took 3.0 s to queue on an
+# H100's host. CYCLES_PER_S turns the host's enqueue time into cycles for
+# the first sleep; it rounds that top clock up, so a slower clock only
+# lengthens the sleep. The gate, not this rate, proves a reading.
+GATE_MIN_CYCLES = 20_000_000
+GATE_MAX_CYCLES = 16_000_000_000
+CYCLES_PER_S = 2.0e9
+
+
+class Gate(NamedTuple):
+    """How the last device-only reading of ``timed_ms`` was proven."""
+
+    cycles: int        # the sleep of the accepted run
+    reruns: int        # runs discarded because the device reached the start event early
+    extra_calls: int   # calls of fn beyond the accepted run's (the sizing pass, the reruns)
+    enqueue_ms: float  # host time per call to queue the accepted run
+
+
 def timed_ms(fn, frames: int, device_only: bool = False) -> float:
     """Time per call of ``fn(k)`` for k in range(frames), by CUDA events
     around the whole run: with host gaps between calls included, or
-    (``device_only``) with the calls queued behind a ~10 ms sleep kernel, so
-    that the device runs their launches back to back."""
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    if device_only:
-        torch.cuda._sleep(20_000_000)
-    start.record()
-    for k in range(frames):
+    (``device_only``) the device's time alone.
+
+    A device-only reading queues the calls behind a sleep kernel and is
+    returned only if the device had not reached the start event when the
+    last call and the end event were queued: the launches then ran back to
+    back, whatever the host's load. The first sleep is twice the host's time
+    to queue one untimed pass of the calls (at least GATE_MIN_CYCLES); a run
+    that fails the gate is discarded and rerun with the sleep doubled, and
+    past GATE_MAX_CYCLES the helper raises ``RuntimeError``. So an ``fn``
+    that waits for the device (``.item()``, ``.cpu()``) cannot be timed
+    device-only. ``timed_ms.last_gate`` holds the last reading's ``Gate``
+    (None after a whole-call reading); the sizing pass and the discarded
+    runs launch ``fn``'s kernels too, and ``Gate.extra_calls`` counts them.
+    Raises ``RuntimeError`` without a CUDA device."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("timed_ms: needs a CUDA device (torch.cuda.is_available() is "
+                           "false); a host-clock reading is not a device time")
+    return _timed_ms(fn, frames, device_only, torch.cuda)
+
+
+def _timed_ms(fn, frames: int, device_only: bool, cuda, clock=time.perf_counter) -> float:
+    """``timed_ms`` with the device's operations taken from ``cuda``
+    (``synchronize()``, ``_sleep(cycles)``, ``Event(enable_timing=True)``)
+    and the host's clock from ``clock``."""
+    timed_ms.last_gate = None
+
+    def run(cycles=None):
+        start, end = cuda.Event(enable_timing=True), cuda.Event(enable_timing=True)
+        cuda.synchronize()
+        if cycles is not None:
+            cuda._sleep(cycles)
+        start.record()
+        t0 = clock()
+        for k in range(frames):
+            fn(k)
+        end.record()
+        return start, end, clock() - t0
+
+    if not device_only:
+        start, end, _ = run()
+        cuda.synchronize()
+        return start.elapsed_time(end) / frames
+    cuda.synchronize()
+    t0 = clock()
+    for k in range(frames):  # the sizing pass
         fn(k)
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / frames
+    cycles = min(GATE_MAX_CYCLES, max(GATE_MIN_CYCLES, int(2 * (clock() - t0) * CYCLES_PER_S)))
+    reruns = 0
+    while True:
+        start, end, enqueue_s = run(cycles)
+        if not start.query():  # still asleep when the last call was queued
+            cuda.synchronize()
+            timed_ms.last_gate = Gate(cycles, reruns, frames * (reruns + 1),
+                                      enqueue_s * 1e3 / frames)
+            return start.elapsed_time(end) / frames
+        if cycles >= GATE_MAX_CYCLES:
+            cuda.synchronize()
+            raise RuntimeError(
+                f"timed_ms: the device reached the start event before {frames} calls were "
+                f"queued, with a sleep of {cycles} cycles (~{cycles / CYCLES_PER_S * 1e3:.0f} "
+                f"ms), the cap, after {reruns} reruns; the host took {enqueue_s * 1e3:.1f} ms "
+                f"to queue them. No device-only reading (an fn that waits for the device "
+                f"cannot have one)")
+        cycles = min(2 * cycles, GATE_MAX_CYCLES)
+        reruns += 1
+
+
+timed_ms.last_gate = None
 
 
 def _short_name(mangled: str) -> str:
