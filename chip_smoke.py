@@ -92,6 +92,30 @@ result line):
 9d. checkpoint resume: 4 kernel-route fit steps on dingdong against 2, a
    checkpoint and 2 resumed, bitwise equal parameters; a checkpoint without
    its ``opt/...`` keys raises;
+9e. the CUDA graphs (``render/graphs.py``; the counts set to 0 just before
+   and read after (d)): (a) all 8 scenes at full size, each frame's graph
+   captured at its second call at the reference pose and replayed at two
+   further poses, every graphed frame equal to the eager one
+   (``graphs.eager()``) bit for bit, one render_fwd launch a frame, one
+   capture a scene; (b) a kept frame unchanged by the next replay; (c) on
+   dingdong, reflection_test and 20spheres the graphed gradients of every
+   group equal the eager ones bit for bit over warm-up, capture and replay,
+   one launch of each kernel a backward, and a backward taken after the
+   next frame's forward too; (d) 5 graphed kernel-route fit steps on
+   dingdong (light colours x0.6, polish 2) and on clebsch 800x600 (coefs and
+   light colours, the BASELINE problem) give the losses and parameters of 5
+   eager steps with the same capturable Adam, bit for bit, with 5 launches
+   of each kernel and the captures printed, and so does the same train
+   step again with new parameters and a new optimizer (whose state does
+   not exist when its keys' graphs do); 9d's graphed 4-step fit equals
+   an eager one; (e) CUDA-event times of the eager and the graphed forward
+   frame, fwd+bwd frame and fit step on dingdong in turns (eager, graphed,
+   graphed, eager), host quiet and busy; the forward and fwd+bwd frames
+   device-only over 6 calls (logged as not measured where the gate refuses
+   the reading); one ``torch._foreach_copy_`` of a frame's inputs against a
+   copy each; the launches each replay adds and each capture's host time;
+   torch.profiler over 8 graphed calls of each path; the memory that one
+   forward-frame, fwd+bwd-frame and fit-step graph keeps on the card;
 10a. the row-sharded path at world size 1 over NCCL, in this process
    (the counts set to 0 just before): ``render_image_sharded`` (kernel
    route) on dingdong 1280x720 equals phase 3's frame bit for bit, and 5
@@ -128,8 +152,8 @@ result line):
    dingdong figures are printed.
 
 The last lines are the card's name and power limit, a {"kernels": [...]}
-line (each kernel's launches on the main paths, the sharded ones of 10a and
-of both ranks of 10b and the bench's of 11 included, its time, its plain
+line (each kernel's launches on the main paths, 9e's, the sharded ones of
+10a and of both ranks of 10b and the bench's of 11 included, its time, its plain
 version's, its bound and share of the bound on dingdong 1280x720; no single
 PyTorch call computes either function, so ``library_ms`` is null), and
 {"ok": true, "device": {...}}.
@@ -139,6 +163,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import io
 import json
 import os
@@ -165,6 +190,7 @@ KERNELS = ("render_fwd", "render_bwd")
 FIT_STEPS = 5          # 9a: the CLI's fit on dingdong; 10a-10c: the sharded fit
 FIT_TIMED_STEPS = 8    # 9a: the train step timed alone
 PROFILED_STEPS = 5     # 10a: the world-1 step under torch.profiler, with and without the group
+DEVICE_ONLY_CALLS = 6  # 9e: the device-only readings of a whole call
 RANK_TIMEOUT_S = 300   # 10b, 10c: each spawned process
 SHARDED_FIT_RTOL = 1e-5  # 10b against 10a: losses and light colours, relative
 BENCH_TIMEOUT_S = 600  # 11: the bench's child process
@@ -212,13 +238,18 @@ def busy_host():
 
 def bench_launches(frames: int) -> dict:
     """The kernels' launches over one run of the bench, from its stage list.
+    Each stage's sweep is one CUDA graph: its eager warm-up on a side stream
+    runs the sweep once, the capture executes nothing (its launches are not
+    counted), and the warm replay and the timed replay run it twice more.
     Each of its 8 forward stages (reflection_test's at 5 bounces, the others
-    without a chain) launches render_fwd for one warm-up frame, the sweep's
-    frames, the parity frame and the sweep again alone; each of its 4
-    forward+backward stages (dingdong, monkey_saddle, reflection_test,
-    20spheres) launches render_fwd with aux and render_bwd once each for a
-    warm-up frame, the sweep's frames and the sweep again alone."""
-    fwd, fwdbwd = 2 * frames + 2, 2 * frames + 1
+    without a chain) launches render_fwd for the sweep's frames and the
+    parity frame three times, and for the sweep's frames alone once more
+    (the kernel reading); each of its 4 forward+backward stages (dingdong,
+    monkey_saddle, reflection_test, 20spheres) launches render_fwd with aux
+    and render_bwd once each for the sweep's frames three times, and once
+    more for the kernel reading (render_fwd for its aux, render_bwd
+    timed)."""
+    fwd, fwdbwd = 4 * frames + 3, 4 * frames
     return {"render_fwd": 8 * fwd + 4 * fwdbwd, "render_fwd.save_aux": 4 * fwdbwd,
             "render_bwd": 4 * fwdbwd, "render_fwd.main": 7 * fwd + 3 * fwdbwd,
             "render_fwd.main_chain": fwd + fwdbwd, "render_fwd.generic": 0}
@@ -236,7 +267,7 @@ def main() -> int:
     import numpy as np
 
     import tpu_ray_tracer_torch as ttt
-    from tpu_ray_tracer_torch.kernel_bench import timed_ms
+    from tpu_ray_tracer_torch.kernel_bench import GateRefused, timed_ms
     from tpu_ray_tracer_torch.parity import (PARITY_GATES, bad_pixel_fraction,
                                              gradient_group_errors)
     from tpu_ray_tracer_torch.render import _build, bounds
@@ -954,6 +985,289 @@ def main() -> int:
         raise RuntimeError("checkpoint without optimizer state: resumed silently")
     log(f"[fit] phase 9 in {time.perf_counter() - t_fit:.1f} s")
 
+    # --- 9e. frames, gradients and fit steps as replayed CUDA graphs ---
+    from tpu_ray_tracer_torch.render import graphs, kernel_backend
+
+    t_graphs = time.perf_counter()
+    zero_counts()
+    frames_cache = kernel_backend._FRAMES
+    frames_cache.clear()
+    captures_before = frames_cache.captures
+    poses = {"reference": camera(), "yaw 91 pitch 2": camera(yaw=91.0, pitch=2.0),
+             "off": camera(*OFF_POSE)}
+
+    def eager_frame(scene, cam):
+        with graphs.eager():
+            return ttt.render_image_kernel(scene, cam)
+
+    # (a) every scene: the first call of a new key warms up, the second
+    # captures and replays; then replays at two further poses, each against
+    # the eager frame at its pose, bit for bit. Scenes whose statics, size
+    # and tables' shapes agree share a key, and so a graph, as two calls
+    # with equal static arguments share a jitted executable
+    capture_calls, keys = {}, {}
+    for name, scene in scenes.items():
+        key = kernel_backend._frame_key(
+            scene, poses["reference"], 0, scene.height, 3,
+            *kernel_backend._iteration_counts(scene, 3, None, None), False)
+        shared = [other for other, k in keys.items() if k == key]
+        keys[name] = key
+        ttt.render_image_kernel(scene, poses["reference"])
+        captured = frames_cache.captures
+        for label, cam in poses.items():
+            before = render_fwd.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = ttt.render_image_kernel(scene, cam)
+            torch.cuda.synchronize()
+            if label == "reference" and not shared:  # the call that captured
+                capture_calls[name] = time.perf_counter() - t0
+            if render_fwd.launches != before + 1:
+                raise RuntimeError(f"graphs {name} {label}: {render_fwd.launches - before} "
+                                   "launches for one frame")
+            if not torch.equal(got, eager_frame(scene, cam)):
+                raise RuntimeError(f"graphs {name} {label}: the graphed frame differs from the "
+                                   "eager one")
+        if frames_cache.captures != captured + (not shared):
+            raise RuntimeError(f"graphs {name}: {frames_cache.captures - captured} captures, "
+                               f"its key shared with {shared}")
+        if shared:
+            log(f"[graphs] {name} shares its frame's key, and graph, with {shared}")
+    log(f"[graphs] forward: 8 scenes at full size, graphed frames equal the eager ones bit for "
+        f"bit at {len(poses)} poses (captured at the first, replayed at the others); "
+        f"{len(set(keys.values()))} keys, {frames_cache.captures - captures_before} captures; "
+        f"the capturing "
+        f"call's host ms (capture + first "
+        f"replay + synchronize): "
+        + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in capture_calls.items()) + f" ({smi})")
+
+    # (b) a kept frame is a fresh tensor: the next replay leaves it alone
+    kept = ttt.render_image_kernel(ding, poses["yaw 91 pitch 2"])
+    copy = kept.clone()
+    after = ttt.render_image_kernel(ding, poses["off"])
+    if not torch.equal(kept, copy) or kept.data_ptr() == after.data_ptr():
+        raise RuntimeError("graphs: a kept frame changed when the next one rendered")
+    log("[graphs] a kept frame is unchanged by the next replay")
+
+    # (c) gradients, every group, graphed against eager, bit for bit
+    def frame_grads_of(scene, cam, weights, eager=False):
+        g_scene, g_cam, g_leaves = grad_leaves(scene, cam)
+        with graphs.eager() if eager else contextlib.nullcontext():
+            (weights * ttt.render_image_kernel(g_scene, g_cam)).sum().backward()
+        return {n: leaf.grad for n, leaf in g_leaves.items()}
+
+    for name in ("dingdong", "reflection_test", "20spheres"):
+        scene = scenes[name]
+        ramp = torch.linspace(0.1, 1.0, scene.height * scene.width * 3, device=dev).reshape(
+            scene.height, scene.width, 3)
+        captured = frames_cache.captures
+        for k in range(3):  # warm-up, capture and replay, replay
+            cam = camera(yaw=90.0 + 0.5 * k, pitch=5.0)
+            before = (render_fwd.launches, render_bwd.launches)
+            got = frame_grads_of(scene, cam, ramp)
+            launched = (render_fwd.launches - before[0], render_bwd.launches - before[1])
+            want = frame_grads_of(scene, cam, ramp, eager=True)
+            differ = [n for n in want if not torch.equal(got[n], want[n])]
+            if differ or launched != (1, 1):
+                raise RuntimeError(f"graphs grad {name} call {k}: groups {differ} differ from "
+                                   f"the eager ones, launches {launched}")
+        if frames_cache.captures != captured + 1:
+            raise RuntimeError(f"graphs grad {name}: {frames_cache.captures - captured} captures")
+        log(f"[graphs] gradient {name} {scene.width}x{scene.height}: all {len(want)} groups "
+            "equal the eager ones bit for bit (warm-up, capture, replay)")
+    # a frame whose backward comes after the next frame's forward: its
+    # forward is replayed again first
+    first_scene, first_cam, first_leaves = grad_leaves(ding, camera(pitch=5.0))
+    first = ttt.render_image_kernel(first_scene, first_cam)
+    second_scene, second_cam, _ = grad_leaves(ding, camera(yaw=93.0, pitch=5.0))
+    ttt.render_image_kernel(second_scene, second_cam)
+    (w * first).sum().backward()
+    want = frame_grads_of(ding, camera(pitch=5.0), w, eager=True)
+    if any(not torch.equal(first_leaves[n].grad, want[n]) for n in want):
+        raise RuntimeError("graphs: a backward after the next frame's forward differs")
+    log("[graphs] a backward after the next frame's forward equals the eager one bit for bit")
+
+    # (d) fit steps, graphed against eager with the same optimizer settings
+    def fit_run(problem, target, eager, steps=FIT_STEPS, step=None):
+        params = inverse.extract_params(problem.scene_template.astype(torch.float32),
+                                        problem.param_fields)
+        optimizer = problem.optimizer(params)
+        step = inverse.make_train_step(problem) if step is None else step
+        losses, host_ms = [], []
+        with graphs.eager() if eager else contextlib.nullcontext():
+            for _ in range(steps):
+                t0 = time.perf_counter()
+                losses.append(step(params, optimizer, camera(), target))  # float() syncs
+                host_ms.append((time.perf_counter() - t0) * 1e3)
+        return losses, params, step, host_ms
+
+    baseline_problem, baseline_target = fit_case(clebsch, ["coefs", "light_color"], "kernel")
+    graph_fits = {}
+    for label, problem, target in (("dingdong 1280x720 light_color", ding_problem, ding_target),
+                                   ("clebsch 800x600 coefs+light_color", baseline_problem,
+                                    baseline_target)):
+        eager_losses, eager_params, _, eager_ms = fit_run(problem, target, eager=True)
+        before = (render_fwd.launches_save_aux, render_bwd.launches)
+        losses, params, step, graphed_ms = fit_run(problem, target, eager=False)
+        launched = (render_fwd.launches_save_aux - before[0], render_bwd.launches - before[1])
+        differ = [k for k in params if not torch.equal(params[k], eager_params[k])]
+        step_graphs = graph_fits[label] = step.graphs
+        log(f"[graphs] fit {label}: {FIT_STEPS} graphed steps, losses {losses}, "
+            f"{step_graphs.captures} captures ({', '.join(f'{t * 1e3:.1f}' for t in step_graphs.capture_s)} ms), "
+            f"launches (fwd with aux, bwd) {launched}; eager losses {eager_losses}; host ms a "
+            f"step, graphed {', '.join(f'{t:.3f}' for t in graphed_ms)}, eager "
+            f"{', '.join(f'{t:.3f}' for t in eager_ms)} ({smi})")
+        if losses != eager_losses or differ or launched != (FIT_STEPS, FIT_STEPS):
+            raise RuntimeError(f"graphs fit {label}: graphed steps differ from the eager ones "
+                               f"(params {differ}) or launched {launched}")
+        # the same train step with new parameters and a new optimizer: its
+        # keys have graphs, and the optimizer's state does not exist yet
+        captures = step_graphs.captures
+        again, again_params, _, _ = fit_run(problem, target, eager=False, step=step)
+        if again != eager_losses or any(not torch.equal(again_params[k], eager_params[k])
+                                        for k in again_params):
+            raise RuntimeError(f"graphs fit {label}: the train step reused with a new optimizer "
+                               f"differs from the eager steps: losses {again}")
+        log(f"[graphs] fit {label}: the train step reused with new parameters and a new "
+            f"optimizer equals {FIT_STEPS} eager steps bit for bit "
+            f"({step_graphs.captures - captures} captures)")
+    with graphs.eager():
+        eager_whole, _ = inverse.fit(ding_problem, ding_target, camera(), steps=4, **quiet)
+    if any(not torch.equal(eager_whole[k], whole[k]) for k in whole):
+        raise RuntimeError("graphs: 9d's graphed 4-step fit differs from an eager one")
+    log("[graphs] 9d's graphed fit (4 steps, and 2 + checkpoint + 2 resumed, bitwise) equals "
+        "4 eager steps bit for bit")
+    graph_launches = {"render_fwd": render_fwd.launches,
+                      "render_fwd_save_aux": render_fwd.launches_save_aux,
+                      "render_bwd": render_bwd.launches}
+    log(f"[graphs] launches in (a)-(d), graphed and eager: {graph_launches}")
+
+    # (e) times by CUDA events, eager and graphed in turns, the host quiet
+    # and busy; the captures' cost and the launches each replay adds
+    def step_times(problem, target, eager, steps=FIT_TIMED_STEPS):
+        params = inverse.extract_params(problem.scene_template.astype(torch.float32),
+                                        problem.param_fields)
+        optimizer = problem.optimizer(params)
+        step = inverse.make_train_step(problem)
+        times = []
+        with graphs.eager() if eager else contextlib.nullcontext():
+            for _ in range(steps):
+                start, end = (torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True))
+                start.record()
+                step(params, optimizer, camera(), target)
+                end.record()
+                torch.cuda.synchronize()
+                times.append(start.elapsed_time(end))
+        return float(np.median(times[2:]))  # steps 3-8: the graph replays
+
+    def forward_call(k):
+        ttt.render_image_kernel(ding, cams[k])
+
+    graph_times = {}
+    for busy in (False, True):
+        for mode in ("eager", "graphed", "graphed", "eager"):
+            with busy_host() if busy else contextlib.nullcontext():
+                with graphs.eager() if mode == "eager" else contextlib.nullcontext():
+                    fwd_ms = timed_ms(forward_call, TIMED_FRAMES)
+                    fb_ms = timed_ms(fwd_bwd, TIMED_FRAMES)
+                step_ms = step_times(ding_problem, ding_target, mode == "eager")
+            for what, ms in (("forward frame", fwd_ms), ("fwd+bwd frame", fb_ms),
+                             ("fit step", step_ms)):
+                graph_times.setdefault((what, mode, busy), []).append(ms)
+                log(f"[graphs-time] dingdong 1280x720 {what}, {mode}, host "
+                    f"{'busy' if busy else 'quiet'}: {ms:.4f} ms ({smi})")
+    # the device's own time of a call, over DEVICE_ONLY_CALLS calls: 32
+    # eager calls queue ~2,400 (forward) and ~4,800 (fwd+bwd) launches behind
+    # the gate's sleep, and the host then blocked until the device woke; a
+    # reading the gate refuses is logged as not measured
+    for what, fn in (("forward frame", forward_call), ("fwd+bwd frame", fwd_bwd)):
+        for mode in ("eager", "graphed"):
+            with graphs.eager() if mode == "eager" else contextlib.nullcontext():
+                try:
+                    ms = timed_ms(fn, DEVICE_ONLY_CALLS, device_only=True)
+                except GateRefused as exc:
+                    log(f"[graphs-time] dingdong 1280x720 {what} device-only, {mode}, "
+                        f"{DEVICE_ONLY_CALLS} calls: not measured ({exc})")
+                    continue
+            log(f"[graphs-time] dingdong 1280x720 {what} device-only, {mode}, "
+                f"{DEVICE_ONLY_CALLS} calls: {ms:.4f} ms ({smi})")
+    # one multi-tensor copy of a frame's 11 inputs against one copy each
+    # (the graphs used last: dingdong's forward and fwd+bwd frames)
+    fwd_entry = [e for e in frames_cache._entries.values() if isinstance(e, graphs.Graph)][-1]
+    src = [t.clone() for t in fwd_entry.inputs]
+    copy_ms = {
+        "torch._foreach_copy_": timed_ms(
+            lambda k: torch._foreach_copy_(fwd_entry.inputs, src), GATE_FRAMES),
+        "copy_ per tensor": timed_ms(
+            lambda k: [d.copy_(t) for d, t in zip(fwd_entry.inputs, src)], GATE_FRAMES)}
+    log("[graphs-time] a frame's 11 inputs into the graph's buffers: " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in copy_ms.items()) + f" a call ({smi})")
+    grad_entry = [e for e in frames_cache._entries.values()
+                  if isinstance(e, kernel_backend._GradFrame)][-1]
+    step_entry = next(e for e in graph_fits["dingdong 1280x720 light_color"]._entries.values()
+                      if e is not None)
+    log(f"[graphs] launches each replay adds: forward frame {fwd_entry.captured.counts}; "
+        f"gradient frame forward {grad_entry.fwd.counts}, backward {grad_entry.bwd.counts}; "
+        f"fit step {step_entry.captured.counts}")
+    log(f"[graphs] capture cost (host ms): frames "
+        f"{', '.join(f'{t * 1e3:.1f}' for t in frames_cache.capture_s)}; fit steps "
+        + "; ".join(f"{k} {', '.join(f'{t * 1e3:.1f}' for t in g.capture_s)}"
+                    for k, g in graph_fits.items()) + f" ({smi})")
+    # where the graphed calls' host time goes: torch.profiler over 8 calls
+    profiled_problem_step = inverse.make_train_step(ding_problem)
+    p_params = inverse.extract_params(ding_problem.scene_template.astype(torch.float32),
+                                      ding_problem.param_fields)
+    p_opt = ding_problem.optimizer(p_params)
+    for _ in range(3):  # warm-up, capture, replay
+        profiled_problem_step(p_params, p_opt, camera(), ding_target)
+    for what, fn in (("forward frame", forward_call), ("fwd+bwd frame", fwd_bwd),
+                     ("fit step", lambda k: profiled_problem_step(p_params, p_opt, camera(),
+                                                                  ding_target))):
+        fn(0)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for k in range(8):
+                fn(k)
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        host = sum(e.self_cpu_time_total for e in events) / 8
+        device = sum(e.self_device_time_total for e in events) / 8
+        top = sorted(events, key=lambda e: -e.self_cpu_time_total)[:8]
+        log(f"[graphs-profile] dingdong 1280x720 graphed {what}, per call: self host {host:.1f} "
+            f"us, self device {device:.1f} us, {sum(e.count for e in events) / 8:.0f} events; "
+            "top host: " + ", ".join(f"{e.key} {e.self_cpu_time_total / 8:.1f} us x"
+                                     f"{e.count / 8:g}" for e in top) + f" ({smi})")
+    # what one graph keeps on the card: the memory that returns to the
+    # device when it is dropped (its private pool and what it holds)
+    def released_mb(make, drop):
+        make()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        kept = torch.cuda.memory_reserved()
+        drop()
+        gc.collect()
+        torch.cuda.empty_cache()
+        return (kept - torch.cuda.memory_reserved()) / 2**20
+
+    def drop_step_graph():
+        profiled_problem_step.graphs.clear()
+        for t in inverse.param_tensors(p_params):
+            t.grad = None  # the replays' gradients live in the graph's pool
+
+    frames_cache.clear()
+    pool_mb = {
+        "forward frame": released_mb(lambda: [forward_call(k) for k in range(2)],
+                                     frames_cache.clear),
+        "fwd+bwd frame": released_mb(lambda: [fwd_bwd(k) for k in range(2)],
+                                     frames_cache.clear),
+        "fit step": released_mb(lambda: None, drop_step_graph)}
+    log("[graphs] memory one dingdong 1280x720 graph keeps on the card (reserved bytes freed "
+        "when it is dropped): " + ", ".join(f"{k} {v:.1f} MiB" for k, v in pool_mb.items())
+        + f" ({smi})")
+    log(f"[graphs] phase 9e in {time.perf_counter() - t_graphs:.1f} s")
+
     # --- 10a. the row-sharded path at world size 1 over NCCL, in process ---
     import datetime
 
@@ -1155,11 +1469,12 @@ def main() -> int:
         "source": "tpu_ray_tracer_torch/csrc/render_fwd.cu",
         "replaces": "tpu_ray_tracer/render/pallas_backend.py:978",
         "launches": (main_launches + grad_launches["render_fwd"] + cli_launches
-                     + fallback_launches + fit_launches["render_fwd"] + sharded_fwd
-                     + bench_counts["render_fwd"]),
+                     + fallback_launches + fit_launches["render_fwd"]
+                     + graph_launches["render_fwd"] + sharded_fwd + bench_counts["render_fwd"]),
         "launches_by_path": {"forward": main_launches, "gradient": grad_launches["render_fwd"],
                              "cli": cli_launches, "fallback": fallback_launches,
-                             "fit": fit_launches["render_fwd"], "sharded": sharded_fwd,
+                             "fit": fit_launches["render_fwd"],
+                             "graphs": graph_launches["render_fwd"], "sharded": sharded_fwd,
                              "bench": bench_counts["render_fwd"]},
         "max_abs_err": worst_abs,
         "worst_bad_px_vs_plain": worst_frac,
@@ -1177,10 +1492,11 @@ def main() -> int:
         "route": "cuda",
         "source": "tpu_ray_tracer_torch/csrc/render_bwd.cu",
         "replaces": "tpu_ray_tracer/render/pallas_backend.py:1613",
-        "launches": (grad_launches["render_bwd"] + fit_launches["render_bwd"] + sharded_bwd
-                     + bench_counts["render_bwd"]),
+        "launches": (grad_launches["render_bwd"] + fit_launches["render_bwd"]
+                     + graph_launches["render_bwd"] + sharded_bwd + bench_counts["render_bwd"]),
         "launches_by_path": {"gradient": grad_launches["render_bwd"],
-                             "fit": fit_launches["render_bwd"], "sharded": sharded_bwd,
+                             "fit": fit_launches["render_bwd"],
+                             "graphs": graph_launches["render_bwd"], "sharded": sharded_bwd,
                              "bench": bench_counts["render_bwd"]},
         "max_abs_err": bwd_worst_abs,
         "worst_group_relerr_vs_plain": bwd_worst_rel,

@@ -43,7 +43,7 @@ def test_bound_takes_the_larger_time():
 def _frame(name, width=32, height=24):
     scene = dataclasses.replace(ttt.load_from_file(scene_path(name), device="cpu"),
                                 width=width, height=height)
-    tables, kw = pack_frame(scene, ttt.Camera.initial(torch.float32), 0, height)
+    tables, kw = pack_frame(scene, ttt.Camera.initial(torch.float32, "cpu"), 0, height)
     _, *aux = render_fwd(*tables, **kw, save_aux=True)
     return tables, kw, aux
 

@@ -3,7 +3,8 @@ forward (with and without its per-stage aux) and the backward; the plain
 pipeline, the gradient fallback and the CLI on the card; the fit's
 kernel-route step, its row-block pipeline backward and the soft render; and
 the row-sharded frame and step over an NCCL group of one rank, the native
-scene loader on the card, and the port's bench at full size.
+scene loader on the card, the CUDA graphs of frames, gradients and fit
+steps against the eager paths, and the port's bench at full size.
 
 This file imports nothing of JAX, so it runs on a machine with a GPU and
 without JAX, from the repository root:
@@ -635,6 +636,164 @@ def test_native_loader_on_card(cuda):
               "bg_color", "tan_half_fov"):
         got = getattr(a, f)
         assert got.device.type == "cuda" and torch.equal(got, getattr(b, f)), f
+
+
+# --- the CUDA graphs: graphed against eager, bit for bit ---
+
+_GRAD_FIELDS = ("coefs", "colors", "reflection", "light_p", "light_color", "bg_color",
+                "tan_half_fov")
+
+
+def _graph_leaves(scene, cam):
+    leaves = {f: getattr(scene, f).detach().clone().requires_grad_() for f in _GRAD_FIELDS}
+    cam_leaves = {f: getattr(cam, f).detach().clone().requires_grad_()
+                  for f in ("position", "yaw_deg", "pitch_deg")}
+    return (dataclasses.replace(scene, **leaves), ttt.Camera(**cam_leaves),
+            {**leaves, **cam_leaves})
+
+
+@pytest.mark.parametrize("name", ["dingdong", "reflection_test", "20spheres", "cayley"])
+def test_graphed_frames_equal_eager(cuda, name):
+    """A frame's first call warms up, its second captures and replays, the
+    rest replay: each graphed frame equals the eager one bit for bit, with
+    one render_fwd launch, and a kept frame is unchanged by later replays."""
+    from tpu_ray_tracer_torch.render import graphs, kernel_backend
+
+    kernel_backend._FRAMES.clear()
+    captures = kernel_backend._FRAMES.captures
+    scene = _scene(name, cuda)
+    frames = []
+    for k, pose in enumerate([POSES[0], POSES[0], POSES[1], ((0.3, 0.1, 0.0), 95.0, 4.0)]):
+        cam = _camera(pose, cuda)
+        before = render_fwd.launches
+        frames.append((ttt.render_image_kernel(scene, cam), cam))
+        torch.cuda.synchronize()
+        assert render_fwd.launches == before + 1, k
+    kept = [f.clone() for f, _ in frames]
+    assert kernel_backend._FRAMES.captures == captures + 1
+    for (image, cam), copy in zip(frames, kept):
+        assert torch.equal(image, copy)
+        with graphs.eager():
+            assert torch.equal(image, ttt.render_image_kernel(scene, cam))
+
+
+@pytest.mark.parametrize("name", ["dingdong", "reflection_test"])
+def test_graphed_gradients_equal_eager(cuda, name):
+    """Every group's gradient through the graphed forward and backward
+    equals the eager one bit for bit, over warm-up, capture and replay,
+    with one launch of each kernel; a backward taken after the next frame's
+    forward replays its own forward first."""
+    from tpu_ray_tracer_torch.render import graphs, kernel_backend
+
+    kernel_backend._FRAMES.clear()
+    captures = kernel_backend._FRAMES.captures
+    scene = _scene(name, cuda)
+    ramp = torch.linspace(0.1, 1.0, scene.height * scene.width * 3, device=cuda).reshape(
+        scene.height, scene.width, 3)
+
+    def grads(cam, eager=False):
+        g_scene, g_cam, leaves = _graph_leaves(scene, cam)
+        with graphs.eager() if eager else torch.enable_grad():
+            (ramp * ttt.render_image_kernel(g_scene, g_cam)).sum().backward()
+        return {k: v.grad for k, v in leaves.items()}
+
+    for k in range(3):
+        cam = _camera(((0.0, 0.0, 0.0), 90.0 + k, 5.0), cuda)
+        f0, b0 = render_fwd.launches, render_bwd.launches
+        got = grads(cam)
+        assert (render_fwd.launches - f0, render_bwd.launches - b0) == (1, 1)
+        want = grads(cam, eager=True)
+        assert all(torch.equal(got[n], want[n]) for n in want), k
+    assert kernel_backend._FRAMES.captures == captures + 1
+    first_scene, first_cam, first = _graph_leaves(scene, _camera(POSES[0], cuda))
+    image = ttt.render_image_kernel(first_scene, first_cam)
+    second_scene, second_cam, _ = _graph_leaves(scene, _camera(POSES[1], cuda))
+    ttt.render_image_kernel(second_scene, second_cam)
+    (ramp * image).sum().backward()
+    want = grads(_camera(POSES[0], cuda), eager=True)
+    assert all(torch.equal(first[n].grad, want[n]) for n in want)
+
+
+@pytest.mark.parametrize("name,fields", [("dingdong", ("light_color",)),
+                                         ("clebsch", ("coefs", "light_color"))])
+def test_graphed_fit_steps_equal_eager(cuda, name, fields, tmp_path):
+    """Five kernel-route train steps through the step's graph give the
+    losses and parameters of five eager steps with the same capturable
+    Adam, bit for bit; a checkpoint resumed into a capturable Adam keeps
+    its step count on the card and resumes bitwise."""
+    from tpu_ray_tracer_torch.diff.inverse import (InverseProblem, extract_params,
+                                                   load_checkpoint, make_train_step,
+                                                   save_checkpoint)
+    from tpu_ray_tracer_torch.render import graphs
+
+    scene = _scene(name, cuda)
+    with torch.no_grad():
+        target = ttt.render_image_kernel(scene, polish_iters=2, bounces=0)
+    perturbed = dataclasses.replace(
+        scene, **{f: getattr(scene, f) * (0.97 if f == "coefs" else 0.6) for f in fields})
+    problem = InverseProblem(scene_template=perturbed,
+                             config=ttt.RenderConfig("float32", 2, chunk_px=None),
+                             param_fields=fields, learning_rate=5e-2, backend="kernel")
+    cam = _camera(POSES[0], cuda)
+
+    def run(eager, steps=5, resume=None):
+        params = extract_params(perturbed.astype(torch.float32), fields)
+        optimizer = problem.optimizer(params)
+        if resume is not None:
+            load_checkpoint(resume, params, optimizer)
+        step = make_train_step(problem)
+        with graphs.eager() if eager else torch.enable_grad():
+            losses = [step(params, optimizer, cam, target) for _ in range(steps)]
+        return losses, params, optimizer, step
+
+    eager_losses, eager_params, _, _ = run(True)
+    losses, params, optimizer, step = run(False)
+    assert optimizer.param_groups[0]["capturable"] and step.graphs.captures >= 1
+    assert losses == eager_losses
+    assert all(torch.equal(params[k], eager_params[k]) for k in fields)
+    path = str(tmp_path / "ck.npz")
+    _, half, half_opt, _ = run(False, steps=2)
+    save_checkpoint(path, half, half_opt, 2)
+    resumed, resumed_params, resumed_opt, _ = run(False, steps=3, resume=path)
+    assert resumed == losses[2:]
+    assert all(torch.equal(resumed_params[k], params[k]) for k in fields)
+    assert resumed_opt.state[resumed_params[fields[0]]]["step"].device.type == "cuda"
+
+
+def test_graphed_train_step_reused_with_a_new_optimizer(cuda):
+    """One train step driven with a second set of parameters and a new
+    capturable Adam, after its key's graph was captured with the first:
+    the new optimizer's first step warms up (a capture would record Adam's
+    zero-fill of its state), the next captures anew, and the five steps
+    equal five eager steps of a fresh train step bit for bit."""
+    from tpu_ray_tracer_torch.diff.inverse import (InverseProblem, extract_params,
+                                                   make_train_step)
+    from tpu_ray_tracer_torch.render import graphs
+
+    scene = _scene("dingdong", cuda)
+    with torch.no_grad():
+        target = ttt.render_image_kernel(scene, polish_iters=2, bounces=0)
+    perturbed = dataclasses.replace(scene, light_color=scene.light_color * 0.6)
+    problem = InverseProblem(scene_template=perturbed,
+                             config=ttt.RenderConfig("float32", 2, chunk_px=None),
+                             param_fields=("light_color",), learning_rate=5e-2,
+                             backend="kernel")
+    cam = _camera(POSES[0], cuda)
+
+    def run(step, eager=False):
+        params = extract_params(perturbed.astype(torch.float32), problem.param_fields)
+        optimizer = problem.optimizer(params)
+        with graphs.eager() if eager else torch.enable_grad():
+            losses = [step(params, optimizer, cam, target) for _ in range(5)]
+        return losses, params["light_color"]
+
+    want, want_light = run(make_train_step(problem), eager=True)
+    step = make_train_step(problem)
+    first, _ = run(step)
+    captures = step.graphs.captures
+    again, light = run(step)
+    assert first == want and again == want and torch.equal(light, want_light)
+    assert step.graphs.captures == captures + 1
 
 
 def test_bench_on_card(cuda):

@@ -137,10 +137,11 @@ def test_loss_and_gradient_match_jax(clebsch_case, jax_hard, route, monkeypatch)
         assert_group_close(name, params[name].grad.numpy(), ref_grads[name])
 
 
-def test_train_steps_match_jax(clebsch_case):
-    """Three Adam steps (lr 1e-2) of the hard loss through the pipeline from
-    the same start as JAX ``make_train_step``: the losses within 1e-4
-    relative and every parameter within 1e-4 of the JAX package's."""
+def _train_steps_against_jax(clebsch_case, backend):
+    """Three Adam steps (lr 1e-2) of the hard loss on ``backend``'s route
+    from the same start as JAX ``make_train_step``: the losses within 1e-4
+    relative and every parameter within 1e-4 of the JAX package's. Returns
+    the port's train step and optimizer."""
     jpert, tpert, start, target = clebsch_case
     mesh = make_mesh()
     jproblem = jinv.InverseProblem(scene_template=jpert, config=JAX_CONFIG, param_fields=FIELDS)
@@ -148,7 +149,8 @@ def test_train_steps_match_jax(clebsch_case):
     jparams = {k: jnp.asarray(v) for k, v in start.items()}
     jstate = jproblem.optimizer().init(jparams)
     tgt = jinv.pad_target(jnp.asarray(target), mesh, jpert.height)
-    problem = InverseProblem(scene_template=tpert, config=CONFIG, param_fields=FIELDS)
+    problem = InverseProblem(scene_template=tpert, config=CONFIG, param_fields=FIELDS,
+                             backend=backend)
     params = params_from_arrays(start, "cpu")
     optimizer = problem.optimizer(params)
     step = make_train_step(problem)
@@ -159,6 +161,22 @@ def test_train_steps_match_jax(clebsch_case):
     got = params_to_arrays(params)
     for name in FIELDS:
         np.testing.assert_allclose(got[name], np.asarray(jparams[name]), rtol=0, atol=1e-4)
+    return step, optimizer
+
+
+def test_train_steps_match_jax(clebsch_case):
+    """Three train steps through the pipeline against JAX's
+    (``_train_steps_against_jax``)."""
+    _train_steps_against_jax(clebsch_case, "torch")
+
+
+def test_kernel_route_train_steps_match_jax(clebsch_case):
+    """The fit step's eager path on the kernel route (its kernels run their
+    plain versions here) against JAX's three train steps: on the CPU the
+    optimizer is not capturable and the step captures no graph."""
+    step, optimizer = _train_steps_against_jax(clebsch_case, "kernel")
+    assert not optimizer.param_groups[0]["capturable"]
+    assert step.graphs.captures == 0 and len(step.graphs._entries) == 0
 
 
 def test_row_blocks_equal_one_shot():

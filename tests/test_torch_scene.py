@@ -120,9 +120,9 @@ def test_loader_error_messages_equal_jax(name, text):
 
 
 def test_entry_points_default_to_the_card():
-    """The loaders and build_scene put the tables on the GPU unless asked
-    otherwise: without one the default raises and names the device, and
-    device="cpu" gives CPU tables equal to the JAX package's."""
+    """The loaders, build_scene and Camera.initial put their tensors on the
+    GPU unless asked otherwise: without one the default raises and names the
+    device, and device="cpu" gives CPU tables equal to the JAX package's."""
     path = scene_path("dingdong")
     entries = [lambda **kw: ttt.load_from_file(path, **kw),
                lambda **kw: ttt.load_from_string(LOADER_OK["minimal_defaults"], **kw),
@@ -135,6 +135,13 @@ def test_entry_points_default_to_the_card():
                 entry()
         scene = entry(device="cpu")
         assert all(getattr(scene, f).device.type == "cpu" for f in FIELDS)
+    if torch.cuda.is_available():
+        assert ttt.Camera.initial().position.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match=r"no CUDA device.*device=\"cpu\""):
+            ttt.Camera.initial()
+    cam = ttt.Camera.initial(torch.float32, device="cpu")
+    assert all(t.device.type == "cpu" for t in (cam.position, cam.yaw_deg, cam.pitch_deg))
     _assert_same_tables(trt.load_from_file(path), ttt.load_from_file(path, device="cpu"))
     assert kb.render_image_kernel(
         dataclasses.replace(ttt.load_from_file(path, device="cpu"), width=4, height=2)
@@ -193,7 +200,7 @@ def test_camera_matches_jax(pose, dtype, atol):
 
 
 def test_camera_initial():
-    c = tcam.Camera.initial()
+    c = tcam.Camera.initial(device="cpu")
     assert c.position.dtype == torch.float64
     assert (float(c.yaw_deg), float(c.pitch_deg)) == (90.0, 0.0)
     assert not c.position.any()
@@ -251,7 +258,7 @@ def test_statics_follow_in_place_edit():
     assert n_cubic2 == jn == 2
     gather, orig_index, _ = kb._slot_tables(coefs)
     assert orig_index.tolist() == [0, 2, 1] and gather.tolist() == [0, 2, 1]
-    tables, kw = kb.pack_frame(scene, tcam.Camera.initial(torch.float32), 0, 4)
+    tables, kw = kb.pack_frame(scene, tcam.Camera.initial(torch.float32, "cpu"), 0, 4)
     assert kw["n_cubic"] == 2
     np.testing.assert_array_equal(tables[0].numpy(), coefs.numpy()[[0, 2, 1]].astype(np.float32))
 
@@ -277,6 +284,8 @@ def test_port_imports_no_jax():
     assert {"sharding.py", "multihost.py"} <= {p.name for p in paths
                                               if p.parent.name == "parallel"}
     assert (REPO / "tpu_ray_tracer_torch" / "native" / "__init__.py") in paths
+    assert {REPO / "tpu_ray_tracer_torch" / "render" / "graphs.py",
+            REPO / "tpu_ray_tracer_torch" / "utils" / "device.py"} <= set(paths)
     offenders = []
     for path in [*paths, REPO / "chip_smoke.py", REPO / "kernel_ab.py",
                  REPO / "tests" / "torch_rank_worker.py"]:

@@ -96,7 +96,8 @@ def test_gate_raises_after_the_cap():
     for the device): the sleep doubles up to the cap and the helper raises,
     naming the frames, never returning a reading."""
     cuda = FakeCuda(iter(lambda: True, None))
-    with pytest.raises(RuntimeError, match=f"before {FRAMES} calls were queued") as exc:
+    with pytest.raises(kernel_bench.GateRefused,
+                       match=f"before {FRAMES} calls were queued") as exc:
         _timed_ms(cuda.fn, FRAMES, True, cuda, cuda.clock)
     assert f"sleep of {GATE_MAX_CYCLES} cycles" in str(exc.value)
     doubled = [GATE_MIN_CYCLES]

@@ -21,21 +21,25 @@ checked between stages and the stages that would not fit are listed under
 1) scales every scene's resolution, which replaces the committed goldens by
 live ones from the port's NumPy oracle.
 
-Timing: the JAX bench's yaw sweep 90 + 1e-3 k, pitch 0, from the origin,
-after one warm-up frame. A forward frame is the whole
-``render_image_kernel`` call (statics, packing, the launch), the
-counterpart of the JAX bench's jitted executable, which holds the packing
-too; each is reduced to a sum kept on the device. CUDA events bracket the
-sweep and the process synchronizes once after it, so host gaps between
-calls count and no frame waits on the host. Beside each whole-call reading,
+Timing: the JAX bench's yaw sweep 90 + 1e-3 k, pitch 0, from the origin.
+A forward frame is the whole ``render_image_kernel`` call (statics,
+packing, the launch), each reduced to a sum kept on the device. As the JAX
+bench times one executable over the sweep (``fwd_many``, ``fwdbwd_many``),
+the sweep (its frames plus the parity frame; or its ``frame_grads``) is
+captured as one CUDA graph after its eager warm-up on a side stream
+(``render/graphs.py``), replayed once warm, and timed by CUDA events around
+one more replay, divided by its frames. Beside each whole-call reading,
 ``kernel_ms_fwd_<scene>`` and ``kernel_ms_bwd_<scene>`` give the kernel
 alone: the device time of the sweep's launches, proven to have run back to
 back (``kernel_bench.timed_ms``, whose gate reruns a reading that host gaps
-could have entered). ``launches`` counts the kernels' launches over the
-run, so a run that missed a kernel shows it; it leaves out the launches of
-each kernel reading's sizing pass and discarded runs, which go to stderr.
+could have entered). ``launches`` counts the kernels' launches that
+executed over the run (the warm-ups' and each replay's, none for a
+capture), so a run that missed a kernel shows it; it leaves out the
+launches of each kernel reading's sizing pass and discarded runs, which go
+to stderr.
 On the CPU (``--device cpu``) every call runs the kernels' plain versions,
-the host clock times the sweeps, and there is no kernel reading.
+the host clock times the sweeps after one warm-up frame, no graph is
+captured, and there is no kernel reading.
 
 Parity is a gate: each forward stage's frame at the reference pose against
 the f64 golden ``bench_goldens/<scene>.npz`` within
@@ -68,7 +72,7 @@ from .kernel_bench import timed_ms
 from .models.loader import load_from_file
 from .ops.camera import Camera
 from .parity import PARITY_GATES, bad_pixel_fraction
-from .render import _build
+from .render import _build, graphs
 from .render.bwd_kernel import render_bwd
 from .render.fwd_kernel import render_fwd
 from .render.kernel_backend import pack_frame, render_image_kernel
@@ -145,20 +149,27 @@ def frame_grads(template, params: dict, camera, bounces: int) -> dict:
     return dict(zip(params, grads))
 
 
-def _sweep_s(device, body):
-    """(seconds, body()): CUDA events around the body on the card with one
-    synchronize after it; the host clock on the CPU."""
+def _sweep_s(device, body, warmup):
+    """(seconds, outputs) of one sweep ``body()``. On the card the body is
+    captured as one CUDA graph after its eager warm-up on a side stream,
+    replayed once warm and once between CUDA events, and the outputs are a
+    fresh copy of that replay's; on the CPU ``warmup()`` runs, then the body
+    under the host clock."""
     if device.type != "cuda":
+        warmup()
         t0 = time.perf_counter()
         out = body()
         return time.perf_counter() - t0, out
+    graphs.warmup(device, body)
+    sweep = graphs.capture(device, body)
+    graphs.replay(sweep)
     torch.cuda.synchronize(device)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    out = body()
+    graphs.replay(sweep)
     end.record()
     torch.cuda.synchronize(device)
-    return start.elapsed_time(end) / 1e3, out
+    return start.elapsed_time(end) / 1e3, graphs.fresh(sweep.outputs)
 
 
 def _kernel_ms(progress: _Progress, fn, frames: int, extra_launches: dict) -> float:
@@ -166,10 +177,10 @@ def _kernel_ms(progress: _Progress, fn, frames: int, extra_launches: dict) -> fl
     discarded runs call ``fn`` ``Gate.extra_calls`` more times, each
     launching what a call of the accepted run does: those launches are added
     to ``extra_launches`` (by ``launch_counts`` key) and logged."""
-    before = launch_counts()
+    before = graphs.launch_counts()
     ms = timed_ms(fn, frames, device_only=True)
     gate = timed_ms.last_gate
-    after = launch_counts()
+    after = graphs.launch_counts()
     added = {k: (after[k] - before[k]) * gate.extra_calls // (frames + gate.extra_calls)
              for k in after}
     for k, v in added.items():
@@ -196,9 +207,9 @@ def _load_golden(progress: _Progress, name: str, scene, scale: float) -> np.ndar
 def _bench_fwd(progress: _Progress, name: str, scene, *, frames: int, scale: float,
                extra_launches: dict, bounces: int = 0) -> dict:
     """Forward throughput over the sweep plus the parity frame at the
-    reference pose (frames + 1 timed calls), the kernel alone over the
-    sweep's tables on the card (``_kernel_ms``), and the parity frame's
-    bad-pixel fraction."""
+    reference pose (one graph replay of frames + 1 frames on the card), the
+    kernel alone over the sweep's tables on the card (``_kernel_ms``), and
+    the parity frame's bad-pixel fraction."""
     device = scene.coefs.device
     scene32 = scene.astype(torch.float32)
     n_px = scene.width * scene.height
@@ -212,11 +223,10 @@ def _bench_fwd(progress: _Progress, name: str, scene, *, frames: int, scale: flo
         return torch.stack(sums), image
 
     with torch.no_grad():
-        progress.stage = f"{name}:fwd warm-up"
-        progress.log(f"{name}: warm-up frame (builds the kernel at first use)")
-        frame(scene32, ref_cam, bounces)
         progress.stage = f"{name}:fwd measure"
-        seconds, (sums, image) = _sweep_s(device, sweep)
+        progress.log(f"{name}: warm-up (builds the kernel at first use), then the sweep")
+        seconds, (sums, image) = _sweep_s(device, sweep,
+                                          lambda: frame(scene32, ref_cam, bounces))
         fwd_s = seconds / (frames + 1)
         if not torch.isfinite(sums).all():
             raise RuntimeError(f"{name}: a frame of the sweep is not finite")
@@ -241,8 +251,8 @@ def _bench_fwdbwd(progress: _Progress, name: str, scene, *, frames: int,
                   extra_launches: dict, bounces: int = 0) -> dict:
     """Forward+backward throughput over the sweep (``frame_grads`` of the
     coefficients and light colours, each frame's gradients reduced to one
-    device scalar), and the backward kernel alone on the sweep's aux on the
-    card (``_kernel_ms``).
+    device scalar; one graph replay on the card), and the backward kernel
+    alone on the sweep's aux on the card (``_kernel_ms``).
 
     The JAX bench fixes the kernel's degree partition from the concrete
     scene before ``jax.grad`` (where the coefficients are abstract); here
@@ -257,11 +267,10 @@ def _bench_fwdbwd(progress: _Progress, name: str, scene, *, frames: int,
     def step(camera):
         return sum(g.sum() for g in frame_grads(template, params, camera, bounces).values())
 
-    progress.stage = f"{name}:fwdbwd warm-up"
-    progress.log(f"{name}: fwd+bwd warm-up frame")
-    step(cams[0])
     progress.stage = f"{name}:fwdbwd measure"
-    seconds, sums = _sweep_s(device, lambda: torch.stack([step(c) for c in cams]))
+    progress.log(f"{name}: fwd+bwd warm-up, then the sweep")
+    seconds, sums = _sweep_s(device, lambda: torch.stack([step(c) for c in cams]),
+                             lambda: step(cams[0]))
     if not torch.isfinite(sums).all():
         raise RuntimeError(f"{name}: a gradient of the sweep is not finite")
     fwdbwd_s = seconds / frames
@@ -285,16 +294,6 @@ def _bench_fwdbwd(progress: _Progress, name: str, scene, *, frames: int,
                 extra_launches)
         progress.log(f"{name}: render_bwd alone {out['kernel_ms_bwd']:.4f} ms/frame")
     return out
-
-
-def launch_counts() -> dict:
-    """The kernels' launch counters (``.launches`` and their breakdowns)."""
-    counts = {"render_fwd": render_fwd.launches,
-              "render_fwd.save_aux": render_fwd.launches_save_aux,
-              "render_bwd": render_bwd.launches}
-    counts.update({f"render_fwd.{k}": v for k, v in render_fwd.launches_by_variant.items()})
-    counts.update({f"render_bwd.{k}": v for k, v in render_bwd.launches_by_placement.items()})
-    return counts
 
 
 def _nvcc_version():
@@ -416,12 +415,12 @@ def _run(progress: _Progress, device, frames: int, budget_s: float, scale: float
             scenes[name] = load_scene(name, scale, device)
         return scenes[name]
 
-    start_counts = launch_counts()
+    start_counts = graphs.launch_counts()
     extra_launches = {}  # the kernel readings' sizing passes and discarded runs
     results = {}
 
     def emit(pending, skipped):
-        now = launch_counts()
+        now = graphs.launch_counts()
         _emit(results, pending, skipped, progress.elapsed(),
               {"launches": {k: now[k] - start_counts[k] - extra_launches.get(k, 0)
                             for k in now}, **info})

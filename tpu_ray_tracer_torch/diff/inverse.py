@@ -24,6 +24,11 @@ rank r takes rows [r * rows_local, (r + 1) * rows_local) of the frame
 gradients before the clip and the optimizer step, so that every rank takes
 the same step.
 
+On the kernel route on the card, one process, the train step replays one
+CUDA graph (``render/graphs.py``): the gradients' zeroing, the loss's
+forward and backward, the clip and the Adam update, the counterpart of the
+jitted ``train_step``. The optimizer is then ``capturable``.
+
 Checkpoints are ``.npz`` files with tree-path keys: ``params/<field>`` (the
 camera as ``params/camera/<position|yaw_deg|pitch_deg>``), ``__step__``, and
 the Adam state as ``opt/<param key>/<exp_avg|exp_avg_sq|step>``.
@@ -41,8 +46,9 @@ import torch.distributed as dist
 from ..models.scene import Scene
 from ..ops import camera as camera_ops
 from ..parallel.sharding import padded_rows, rank_and_size
+from ..render import graphs
 from ..render.fwd_kernel import MAX_AUX_LIGHTS
-from ..render.kernel_backend import render_rows_kernel
+from ..render.kernel_backend import _slot_tables, _statics_for, render_rows_kernel
 from ..render.pipeline import RenderConfig, render_rays, resolve_bounces
 
 # --- parameterization ---
@@ -143,8 +149,14 @@ class InverseProblem:
 
     def optimizer(self, params: dict) -> torch.optim.Adam:
         """Adam over the parameters; its defaults equal ``optax.adam``'s
-        (betas 0.9, 0.999; eps 1e-8 outside the square root)."""
-        return torch.optim.Adam(param_tensors(params), lr=self.learning_rate)
+        (betas 0.9, 0.999; eps 1e-8 outside the square root). On the card it
+        is ``capturable`` (its step count lives on the device and its update
+        reads no host value), so that ``make_train_step`` can capture it in
+        the step's CUDA graph; an eager step on the card runs the same
+        update."""
+        tensors = param_tensors(params)
+        capturable = bool(tensors) and tensors[0].device.type == "cuda"
+        return torch.optim.Adam(tensors, lr=self.learning_rate, capturable=capturable)
 
 
 # Elements of [rays, lights + 1, objects] solves (each stage's primary and
@@ -286,18 +298,110 @@ def make_train_step(problem: InverseProblem, group=None):
     """``train_step(params, optimizer, camera, target, tau=None) -> float``:
     zero the gradients, compute the loss and its gradient (by row blocks;
     with a process group, this rank's rows, then the all-reduce), clip to
-    ``grad_clip`` if set, take the optimizer step, return the loss."""
+    ``grad_clip`` if set, take the optimizer step, return the loss.
+
+    On the kernel route on the card the whole step replays one CUDA graph,
+    the counterpart of the jitted ``train_step`` (``render/graphs.py``). Its
+    key is the statics of the coefficients the step renders with, derived
+    before every step from the current iterate (a step whose update changes
+    them replays, or captures, the graph of the new key), the inputs' and
+    parameters' shapes and the optimizer's hyper-parameters. The graph reads
+    the parameters and the optimizer's state where they were at capture; a
+    call where they moved (``load_checkpoint`` gives new state tensors)
+    captures anew. A step whose parameters have no optimizer state yet (a
+    new optimizer, or new parameters) runs eagerly as a warm-up, since a
+    capture would record Adam's zero-fill of that state. The target and a camera that is not a parameter are
+    copied into the graph's inputs. After a replay ``.grad`` holds the
+    step's gradient, in the graph's memory, and every parameter's version
+    counter is bumped as an eager update bumps it.
+
+    The step stays eager on the CPU, on the pipeline route (a soft loss,
+    more than 31 lights or no object), with a process group of more than one
+    rank (gloo's all-reduce cannot be captured, NCCL's across cards is
+    unverified), with an optimizer that is not ``capturable``, with a camera
+    that requires grad without being a parameter, and inside
+    ``graphs.eager()``. ``train_step.graphs`` is its ``GraphCache``."""
     loss_fn = make_loss_fn(problem, group)
 
-    def train_step(params, optimizer, camera, target, tau=None) -> float:
+    def eager_step(params, optimizer, camera, target, tau=None):
         optimizer.zero_grad(set_to_none=True)
         loss = loss_fn.backward(params, camera, target, tau)
         if problem.grad_clip is not None:
             torch.nn.utils.clip_grad_norm_(param_tensors(params), problem.grad_clip)
         optimizer.step()
-        return float(loss)
+        return loss
 
+    cache = graphs.GraphCache()
+
+    def train_step(params, optimizer, camera, target, tau=None) -> float:
+        tensors = param_tensors(params)
+        fixed_camera = ([] if "camera" in params
+                        else [camera.position, camera.yaw_deg, camera.pitch_deg])
+        if not (loss_fn.use_kernel and loss_fn.n_ranks == 1 and graphs.active(target.device)
+                and all(g.get("capturable") for g in optimizer.param_groups)
+                and not any(t.requires_grad for t in fixed_camera)):
+            return float(eager_step(params, optimizer, camera, target, tau))
+        # the host half of the frame, outside any capture
+        coefs = params.get("coefs", loss_fn.template.coefs)
+        statics = _statics_for(coefs)
+        _slot_tables(coefs)
+        inputs = [target, *fixed_camera]
+        hyper = tuple(tuple((k, v) for k, v in sorted(g.items()) if k != "params")
+                      for g in optimizer.param_groups)
+        key = (statics, tuple((tuple(t.shape), t.dtype) for t in inputs + tensors), hyper)
+
+        def body(target, *camera):
+            return eager_step(params, optimizer,
+                              camera_ops.Camera(*camera) if camera else None, target)
+
+        def make():
+            return _StepGraph(target.device, body, inputs, tensors, optimizer)
+
+        # Adam creates its state (step, moments) at a parameter's first step.
+        # Captured, that zero-fill would run again at every replay, so a
+        # step with no state yet is a warm-up, whether or not the key has a
+        # graph (a new optimizer, or new parameters, under a cached key).
+        if all(optimizer.state.get(t) for t in tensors):
+            entry = cache.lookup(key, make)
+        else:
+            cache.seen(key)
+            entry = None
+        if entry is None:
+            return float(graphs.warmup(
+                target.device, lambda: eager_step(params, optimizer, camera, target, tau)))
+        if entry.guard != _step_guard(tensors, optimizer):
+            entry = cache.recapture(key, make)
+        return entry(inputs, tensors)
+
+    train_step.graphs = cache
     return train_step
+
+
+def _step_guard(tensors, optimizer) -> tuple:
+    """Where the parameters and their optimizer state are on the device."""
+    return (tuple(t.data_ptr() for t in tensors)
+            + tuple(v.data_ptr() for t in tensors for v in optimizer.state.get(t, {}).values()
+                    if isinstance(v, torch.Tensor)))
+
+
+class _StepGraph(graphs.Graph):
+    """The graph of one train step. The gradients are set to None before
+    the capture, so that the captured backward allocates them in the graph's
+    pool, where every replay writes them."""
+
+    def __init__(self, device, body, inputs, tensors, optimizer):
+        optimizer.zero_grad(set_to_none=True)
+        super().__init__(device, body, inputs)
+        self.grads = [t.grad for t in tensors]
+        self.guard = _step_guard(tensors, optimizer)
+
+    def __call__(self, inputs, tensors) -> float:
+        self.load(inputs)
+        graphs.replay(self.captured)
+        for t, g in zip(tensors, self.grads):
+            t.grad = g
+            torch.autograd.graph.increment_version(t)  # the replay updated it in place
+        return float(self.captured.outputs)
 
 
 def pad_target(target, height: int) -> torch.Tensor:
@@ -381,6 +485,10 @@ def fit(problem: InverseProblem, target, camera=None, steps: int = 200, log_ever
     return params, losses
 
 
+def _param_group(optimizer: torch.optim.Optimizer, t: torch.Tensor) -> dict:
+    return next(g for g in optimizer.param_groups if any(p is t for p in g["params"]))
+
+
 def _quiet(*args, **kwargs) -> None:
     """The print function of every rank but rank 0."""
 
@@ -435,8 +543,11 @@ def load_checkpoint(path, params: dict, optimizer: torch.optim.Optimizer | None 
                 raise KeyError(f"checkpoint {path} has no optimizer state for {key!r} "
                                f"(missing {', '.join(f'opt/{key}/{n}' for n in missing)}); "
                                "resuming would restart Adam's moments from zero")
+            count = torch.tensor(float(data[f"opt/{key}/step"]))
+            if _param_group(optimizer, t).get("capturable"):
+                count = count.to(t.device)  # a capturable Adam keeps its count on the device
             optimizer.state[t] = {
-                "step": torch.tensor(float(data[f"opt/{key}/step"])),
+                "step": count,
                 "exp_avg": torch.as_tensor(data[f"opt/{key}/exp_avg"]).to(t),
                 "exp_avg_sq": torch.as_tensor(data[f"opt/{key}/exp_avg_sq"]).to(t),
             }

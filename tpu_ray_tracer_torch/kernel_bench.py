@@ -65,6 +65,11 @@ GATE_MAX_CYCLES = 16_000_000_000
 CYCLES_PER_S = 2.0e9
 
 
+class GateRefused(RuntimeError):
+    """``timed_ms`` refused a device-only reading: the device reached the
+    start event early at every sleep up to GATE_MAX_CYCLES."""
+
+
 class Gate(NamedTuple):
     """How the last device-only reading of ``timed_ms`` was proven."""
 
@@ -85,7 +90,7 @@ def timed_ms(fn, frames: int, device_only: bool = False) -> float:
     back, whatever the host's load. The first sleep is twice the host's time
     to queue one untimed pass of the calls (at least GATE_MIN_CYCLES); a run
     that fails the gate is discarded and rerun with the sleep doubled, and
-    past GATE_MAX_CYCLES the helper raises ``RuntimeError``. So an ``fn``
+    past GATE_MAX_CYCLES the helper raises ``GateRefused``. So an ``fn``
     that waits for the device (``.item()``, ``.cpu()``) cannot be timed
     device-only. ``timed_ms.last_gate`` holds the last reading's ``Gate``
     (None after a whole-call reading); the sizing pass and the discarded
@@ -134,7 +139,7 @@ def _timed_ms(fn, frames: int, device_only: bool, cuda, clock=time.perf_counter)
             return start.elapsed_time(end) / frames
         if cycles >= GATE_MAX_CYCLES:
             cuda.synchronize()
-            raise RuntimeError(
+            raise GateRefused(
                 f"timed_ms: the device reached the start event before {frames} calls were "
                 f"queued, with a sleep of {cycles} cycles (~{cycles / CYCLES_PER_S * 1e3:.0f} "
                 f"ms), the cap, after {reruns} reruns; the host took {enqueue_s * 1e3:.1f} ms "

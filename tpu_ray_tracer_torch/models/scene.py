@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..ops.camera import Camera
+from ..utils.device import resolve_device
 from . import light as light_mod
 from . import surface as surface_mod
 from .errors import validate_color, validate_positive
@@ -137,18 +138,6 @@ def build_scene(
         np.float64(math.tan(0.5 * fov_rad)), width, height, max_reflections,
         device=device,
     )
-
-
-def resolve_device(device) -> torch.device:
-    """``device`` as a ``torch.device``; raises where it names CUDA and no
-    CUDA device is present, so that a scene never lands on the CPU unasked."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"no CUDA device for the scene tables (device={str(device)!r}, "
-            "torch.cuda.is_available() is false); pass device=\"cpu\" to load "
-            "or build the scene on the CPU")
-    return dev
 
 
 def scene_from_arrays(coefs, colors, reflection, light_p, light_color,

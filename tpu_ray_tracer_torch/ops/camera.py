@@ -22,6 +22,8 @@ import math
 
 import torch
 
+from ..utils.device import resolve_device
+
 
 @dataclasses.dataclass(frozen=True)
 class Camera:
@@ -30,9 +32,12 @@ class Camera:
     pitch_deg: torch.Tensor  # 0-d
 
     @staticmethod
-    def initial(dtype=torch.float64, device="cpu") -> "Camera":
+    def initial(dtype=torch.float64, device="cuda") -> "Camera":
         """Reference initial pose: position (0,0,0), yaw 90, pitch 0
-        (reference: src/ray-tracer.cpp:25, 31-32)."""
+        (reference: src/ray-tracer.cpp:25, 31-32), on the card unless
+        ``device`` names another; without a card the default raises, as the
+        loaders' does (``utils/device.resolve_device``)."""
+        device = resolve_device(device)
         return Camera(
             position=torch.zeros(3, dtype=dtype, device=device),
             yaw_deg=torch.full((), 90.0, dtype=dtype, device=device),
@@ -76,7 +81,10 @@ def camera_frame(camera: Camera):
     """
     d = view_direction(camera.yaw_deg, camera.pitch_deg)
     f = _normalize(-d)
-    up = torch.tensor([0.0, 1.0, 0.0], dtype=d.dtype, device=d.device)
+    # (0, 1, 0) written on the device: a copy from the host could not be
+    # captured into a CUDA graph
+    up = torch.zeros(3, dtype=d.dtype, device=d.device)
+    up.narrow(0, 1, 1).fill_(1.0)
     s = _normalize(torch.linalg.cross(f, up))
     u = torch.linalg.cross(s, f)
     rotation = torch.stack([s, u, -f], dim=-1)  # columns

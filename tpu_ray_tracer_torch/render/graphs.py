@@ -1,0 +1,296 @@
+"""Replayed CUDA graphs: the port's counterpart of the JAX package's compiled
+executables.
+
+The JAX package runs a frame, a fit step and a bench sweep as one launch of
+an executable that ``jax.jit`` compiled once for its static arguments
+(``_render_pallas_jit``, ``tpu_ray_tracer/render/pallas_backend.py:1454-1457``;
+the jitted ``train_step``, ``tpu_ray_tracer/diff/inverse.py:263``;
+``bench.py``'s ``fwd_many`` and ``fwdbwd_many``). Here the same work is
+captured once into a ``torch.cuda.CUDAGraph`` and replayed: one graph launch
+in place of the ~70 launches of a frame's packing and kernel, or the ~600
+operations of a fit step.
+
+A captured graph reads and writes fixed addresses, so:
+
+* the graph reads static input buffers, and a call copies the caller's
+  tensors into them (one ``torch._foreach_copy_``) before the replay;
+* every tensor a call returns is a fresh copy of the graph's output, so a
+  later replay cannot change what the caller kept (JAX's arrays are
+  immutable);
+* what the capture derived on the host (the scene statics, the bounce
+  count, row0 and rows, the shapes, which inputs require grad) is part of
+  the graph's key: a call whose key differs replays, or captures, another
+  graph. No ``.cpu()``, ``.item()`` or ``float()`` runs inside a capture.
+
+``GraphCache`` holds the graphs of one caller, at most ``MAX_GRAPHS``, and
+drops the least recently used. A key's first use runs eagerly on a side
+stream: that is the warm-up, which also builds the kernels and sets their
+launch attributes outside any capture. Its second use captures the graph on
+that stream and replays it, and later uses replay. So a call made once (a
+scene rendered once) pays no capture.
+
+Launch accounting. The kernels' wrappers count the launches they make
+(``render_fwd.launches`` and the rest, ``launch_counts``). A capture runs
+the wrappers without executing the kernels, so ``capture`` takes their
+increments back and records them, and each ``replay`` adds what was
+recorded: the counters count the launches that execute.
+
+While a graph is warmed up or captured, ``eager()`` is on: an entry point
+reached from inside (the frame of a fit step, the frames of a bench sweep)
+runs its eager body, and no capture nests in another.
+"""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+import threading
+import time
+from typing import NamedTuple
+
+import torch
+
+from .bwd_kernel import render_bwd
+from .fwd_kernel import render_fwd
+
+# Graphs a cache keeps (keys seen once included); the least recently used
+# goes first. Each keeps its private memory pool on the card (chip_smoke.py
+# 9e (e) measures one).
+MAX_GRAPHS = 16
+
+
+def _counters():
+    """(name, holder, field) of every launch counter of the wrappers."""
+    return ([("render_fwd", render_fwd.__dict__, "launches"),
+             ("render_fwd.save_aux", render_fwd.__dict__, "launches_save_aux"),
+             ("render_bwd", render_bwd.__dict__, "launches")]
+            + [(f"render_fwd.{k}", render_fwd.launches_by_variant, k)
+               for k in render_fwd.launches_by_variant]
+            + [(f"render_bwd.{k}", render_bwd.launches_by_placement, k)
+               for k in render_bwd.launches_by_placement])
+
+
+def launch_counts() -> dict:
+    """The kernels' launch counters (``.launches`` and their breakdowns) by
+    name."""
+    return {name: holder[field] for name, holder, field in _counters()}
+
+
+def _restore(counts: dict) -> None:
+    for name, holder, field in _counters():
+        holder[field] = counts[name]
+
+
+def _add(counts: dict) -> None:
+    for name, holder, field in _counters():
+        holder[field] += counts.get(name, 0)
+
+
+_STATE = threading.local()
+
+
+@contextlib.contextmanager
+def eager():
+    """Inside the block, every entry point of this thread runs its eager
+    body: no graph is captured or replayed."""
+    before = getattr(_STATE, "eager", False)
+    _STATE.eager = True
+    try:
+        yield
+    finally:
+        _STATE.eager = before
+
+
+def active(device: torch.device) -> bool:
+    """Whether an entry point on ``device`` goes through graphs: a CUDA
+    device, outside ``eager()`` and outside any capture."""
+    return (device.type == "cuda" and not getattr(_STATE, "eager", False)
+            and not torch.cuda.is_current_stream_capturing())
+
+
+class CudaGraphs:
+    """The device side: one side stream per device, the warm-up and the
+    capture on it, the replay on the current stream."""
+
+    def __init__(self):
+        self._streams = {}
+
+    def _side(self, device) -> torch.cuda.Stream:
+        index = torch.device(device).index
+        index = torch.cuda.current_device() if index is None else index
+        if index not in self._streams:
+            self._streams[index] = torch.cuda.Stream(index)
+        return self._streams[index]
+
+    def warmup(self, device, fn):
+        """``fn()`` on the side stream, ordered after the current stream's
+        work and before its later work."""
+        current = torch.cuda.current_stream(device)
+        side = self._side(device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            out = fn()
+        current.wait_stream(side)
+        for t in _tensors(out):
+            t.record_stream(current)  # the caller frees it on its own stream
+        return out
+
+    def capture(self, device, fn, pool=None):
+        """(graph, ``fn()``'s outputs) from a capture of ``fn`` on the side
+        stream into a private memory pool, or into ``pool``."""
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=pool, stream=self._side(device)):
+            out = fn()
+        return graph, out
+
+    @staticmethod
+    def pool(graph):
+        return graph.pool()
+
+    @staticmethod
+    def replay(graph) -> None:
+        graph.replay()
+
+
+# The device side of every graph; tests put a fake in its place.
+BACKEND = CudaGraphs()
+
+
+def _tensors(out):
+    if isinstance(out, torch.Tensor):
+        yield out
+    elif isinstance(out, (tuple, list)):
+        for o in out:
+            yield from _tensors(o)
+
+
+def fresh(out):
+    """A copy of every tensor in ``out`` (a tensor, or tuples and lists of
+    them; None kept)."""
+    if isinstance(out, torch.Tensor):
+        return out.clone()
+    if isinstance(out, (tuple, list)):
+        return type(out)(fresh(o) for o in out)
+    return out
+
+
+class Captured(NamedTuple):
+    graph: object
+    outputs: object     # the graph's static outputs, rewritten by each replay
+    counts: dict        # the launches each replay makes, by ``launch_counts`` name
+    held: list          # what ``hold`` kept alive for the graph
+
+
+def hold(value):
+    """Keep ``value`` alive as long as the graph being captured, if any.
+
+    A graph reads the tensors it was captured with at their addresses, so a
+    tensor made outside the capture that it reads (a table memoised by
+    ``kernel_backend._memo``) must outlive the graph, whoever else drops
+    it. Returns ``value``."""
+    held = getattr(_STATE, "held", None)
+    if held is not None:
+        held.append(value)
+    return value
+
+
+def warmup(device, fn):
+    """``fn()`` eagerly on the side stream, under ``eager()``."""
+    with eager():
+        return BACKEND.warmup(device, fn)
+
+
+def capture(device, fn, pool=None) -> Captured:
+    """Capture ``fn()`` under ``eager()``; the launches its wrappers counted
+    are taken back and kept as the graph's ``counts``."""
+    before = launch_counts()
+    outer, _STATE.held = getattr(_STATE, "held", None), []
+    try:
+        with eager():
+            graph, out = BACKEND.capture(device, fn, pool)
+        after = launch_counts()
+        held = _STATE.held
+    finally:
+        _restore(before)
+        _STATE.held = outer
+    return Captured(graph, out, {k: after[k] - before[k] for k in after if after[k] != before[k]},
+                    held)
+
+
+def replay(captured: Captured) -> None:
+    """Launch the graph and add its launches to the counters."""
+    BACKEND.replay(captured.graph)
+    _add(captured.counts)
+
+
+def pool_of(captured: Captured):
+    """The memory pool of a captured graph, for a capture that reads what
+    it left there."""
+    return BACKEND.pool(captured.graph)
+
+
+class Graph:
+    """A graph of ``fn(*inputs)`` whose inputs are static buffers: a call
+    copies its tensors into them, replays, and returns fresh outputs."""
+
+    def __init__(self, device, fn, inputs):
+        self.fn = fn  # its closure may hold tensors the graph reads
+        self.inputs = [t.detach().clone() for t in inputs]
+        self.captured = capture(device, lambda: fn(*self.inputs))
+
+    def load(self, inputs) -> None:
+        """Copy the call's tensors into the static inputs."""
+        if self.inputs:
+            with torch.no_grad():
+                torch._foreach_copy_(self.inputs, list(inputs))
+
+    def __call__(self, inputs):
+        self.load(inputs)
+        replay(self.captured)
+        return fresh(self.captured.outputs)
+
+
+class GraphCache:
+    """The graphs of one caller by key, at most ``MAX_GRAPHS``.
+
+    ``lookup(key, make)`` returns None at a key's first use (the caller then
+    runs its warm-up, ``warmup``), and from its second use the graph that
+    ``make()`` captured then. ``captures`` counts the captures and
+    ``capture_s`` holds the host seconds of each."""
+
+    def __init__(self):
+        self._entries = collections.OrderedDict()
+        self.captures = 0
+        self.capture_s = []
+
+    def __len__(self) -> int:
+        return sum(entry is not None for entry in self._entries.values())
+
+    def seen(self, key) -> bool:
+        """Record a use of ``key``; whether it was used before."""
+        if key in self._entries:
+            self._entries.move_to_end(key)
+            return True
+        self._entries[key] = None
+        while len(self._entries) > MAX_GRAPHS:
+            self._entries.popitem(last=False)
+        return False
+
+    def lookup(self, key, make):
+        if not self.seen(key):
+            return None
+        if self._entries[key] is None:
+            self.recapture(key, make)
+        return self._entries[key]
+
+    def recapture(self, key, make):
+        """Capture the key's graph anew (its inputs moved), and return it."""
+        self._entries[key] = None  # drop the old graph before the new one's pool
+        t0 = time.perf_counter()
+        self._entries[key] = make()
+        self.capture_s.append(time.perf_counter() - t0)
+        self.captures += 1
+        return self._entries[key]
+
+    def clear(self) -> None:
+        self._entries.clear()

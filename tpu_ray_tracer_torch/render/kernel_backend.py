@@ -29,6 +29,15 @@ without aux forward, and the backward recomputed through the plain pipeline
 The JAX package's scene statics are jit-static and its kernel is rebuilt
 per scene; here they are runtime arguments of one kernel build, and the
 light kinds are read by the kernel from column 0 of the light table.
+
+Where the JAX package launches one jitted executable per frame, a frame on
+the card replays one CUDA graph (``render/graphs.py``): the packing and the
+launch, captured for the frame's key (the statics, the iteration counts,
+the rows, the tables' shapes and which of them require grad); a
+differentiable frame replays a forward graph and, in its backward, a
+backward graph. ``pack_frame`` is split for it into a host half (the
+statics and slot tables, memoised) and ``_pack``, device operations only.
+``PipelineGradRender`` stays eager.
 """
 
 from __future__ import annotations
@@ -42,7 +51,7 @@ import torch
 from ..models.scene import Scene
 from ..models.surface import MONOMIAL_POWERS
 from ..ops import camera as camera_ops
-from . import pipeline
+from . import graphs, pipeline
 from .bwd_kernel import render_bwd, split_grad
 from .fwd_kernel import MAX_AUX_LIGHTS, QUAD_START, render_fwd
 
@@ -91,16 +100,18 @@ _MEMO: dict = {}
 
 
 def _memo(t: torch.Tensor, fn):
+    """``fn(t)``, memoised; a CUDA graph being captured holds the value (the
+    memo may drop it while the graph still reads it, ``graphs.hold``)."""
     key = (fn.__name__, id(t), t.data_ptr(), t._version, tuple(t.shape), t.dtype,
            t.device)
     entry = _MEMO.get(key)
     if entry is not None and entry[0]() is t:
-        return entry[1]
+        return graphs.hold(entry[1])
     value = fn(t)
     if len(_MEMO) > 64:
         _MEMO.clear()
     _MEMO[key] = (weakref.ref(t), value)
-    return value
+    return graphs.hold(value)
 
 
 def _compute_statics(coefs: torch.Tensor):
@@ -193,18 +204,23 @@ def _dir_form_table(coefs: torch.Tensor, lights: torch.Tensor, n_cubic: int) -> 
     return torch.where(slot_cubic[None, :], c_tbl, q_tbl).contiguous()
 
 
-def pack_frame(scene: Scene, camera: camera_ops.Camera, row0: int, rows: int,
-               *, polish_iters: int = 3, bounces: int | None = None,
-               shadow_iters: int | None = None):
-    """(tables, keyword arguments) of one ``render_fwd`` call for image rows
-    [row0, row0 + rows), on the scene's device."""
+def _iteration_counts(scene: Scene, polish_iters: int, bounces, shadow_iters):
+    """(bounces, shadow_iters) of a frame: the reflection chain's length
+    (``max_reflections`` when any object reflects, unless given) and the
+    shadow solves' Newton steps, clamped to [1, polish_iters]."""
     if bounces is None:
         bounces = scene.max_reflections if _memo(scene.reflection, _reflective) else 0
     if shadow_iters is None:
         shadow_iters = min(SHADOW_POLISH, polish_iters)
-    shadow_iters = max(1, min(int(shadow_iters), polish_iters))
-    _perm, n_cubic, _posdef = _statics_for(scene.coefs)
-    gather, orig_index, posdef = _slot_tables(scene.coefs)
+    return int(bounces), max(1, min(int(shadow_iters), polish_iters))
+
+
+def _pack(scene: Scene, camera: camera_ops.Camera, row0: int, rows: int, n_cubic: int,
+          slots, polish_iters: int, bounces: int, shadow_iters: int):
+    """``pack_frame`` with its host half done: the statics' ``n_cubic`` and
+    slot tables (``_slot_tables``) given. Device operations only, so a CUDA
+    graph can capture it."""
+    gather, orig_index, posdef = slots
     scene32 = scene.astype(torch.float32)
     coefs = scene32.coefs.index_select(0, gather)
     lights = _pack_lights(scene32)
@@ -221,8 +237,19 @@ def pack_frame(scene: Scene, camera: camera_ops.Camera, row0: int, rows: int,
     kwargs = dict(width=scene.width, height=scene.height, rows=int(rows),
                   n_cubic=n_cubic, polish_iters=int(polish_iters),
                   shadow_iters=shadow_iters, screen_iters=SCREEN_ITERS,
-                  bounces=int(bounces))
+                  bounces=bounces)
     return tables, kwargs
+
+
+def pack_frame(scene: Scene, camera: camera_ops.Camera, row0: int, rows: int,
+               *, polish_iters: int = 3, bounces: int | None = None,
+               shadow_iters: int | None = None):
+    """(tables, keyword arguments) of one ``render_fwd`` call for image rows
+    [row0, row0 + rows), on the scene's device."""
+    bounces, shadow_iters = _iteration_counts(scene, polish_iters, bounces, shadow_iters)
+    _perm, n_cubic, _posdef = _statics_for(scene.coefs)
+    return _pack(scene, camera, row0, rows, n_cubic, _slot_tables(scene.coefs),
+                 polish_iters, bounces, shadow_iters)
 
 
 class PackedRender(torch.autograd.Function):
@@ -257,9 +284,11 @@ class PackedRender(torch.autograd.Function):
                          n_lights=n_lights, bounces=kw["bounces"])
         grads = split_grad(vec, n_obj, n_lights)
         # cam row 17 is the integer row offset and light column 0 the kind
-        # flag: neither is a parameter (Pallas :2099-2109)
-        grads["cam"][17] = 0.0
-        grads["lights"][:, 0] = 0.0
+        # flag: neither is a parameter (Pallas :2099-2109). Filled on the
+        # device: an assignment from a Python number copies from the host,
+        # which a CUDA graph cannot capture
+        grads["cam"].narrow(0, 17, 1).fill_(0.0)
+        grads["lights"].narrow(1, 0, 1).fill_(0.0)
         return (grads["coefs"], None, grads["colors"], grads["refl"], grads["lights"], None,
                 None, grads["cam"], None)
 
@@ -344,6 +373,132 @@ class PipelineGradRender(torch.autograd.Function):
         return (None, None, *out)
 
 
+def _frame_tensors(scene: Scene, camera: camera_ops.Camera) -> list:
+    """Every tensor a frame reads, in the order its graphs take them:
+    ``_grad_tensors``' and the light kinds."""
+    return [*_grad_tensors(scene, camera), scene.light_is_spherical]
+
+
+# The frames' graphs (forward, and forward + backward), by key.
+_FRAMES = graphs.GraphCache()
+
+
+class _GradFrame:
+    """The two graphs of a differentiable frame: the forward (the packing
+    and K1 with its aux) and the backward (K2, ``split_grad`` and autograd
+    back through the packing), captured one after the other into one memory
+    pool, where the forward leaves the aux that the backward reads.
+
+    The pool holds one forward's saved tensors at a time: ``current`` is
+    the forward call whose they are, and a backward of an earlier call
+    replays its forward again first."""
+
+    def __init__(self, device, body, inputs):
+        self.body = body  # its closure holds the slot tables the graphs read
+        self.inputs = [t.detach().clone().requires_grad_(t.requires_grad) for t in inputs]
+        self.wanted = [i for i, t in enumerate(self.inputs) if t.requires_grad]
+        self.fwd = graphs.capture(device, lambda: body(*self.inputs))
+        image = self.fwd.outputs
+        self.grad_image = torch.zeros_like(image)
+        self.bwd = graphs.capture(
+            device, lambda: torch.autograd.grad(image, [self.inputs[i] for i in self.wanted],
+                                                self.grad_image, allow_unused=True),
+            pool=graphs.pool_of(self.fwd))
+        self.image = image.detach()
+        self.current = None
+
+    def forward(self, inputs, token) -> None:
+        with torch.no_grad():
+            torch._foreach_copy_(self.inputs, list(inputs))
+        graphs.replay(self.fwd)
+        self.current = token
+
+    def backward(self, grad_image) -> list:
+        self.grad_image.copy_(grad_image)
+        graphs.replay(self.bwd)
+        grads = [None] * len(self.inputs)
+        for i, g in zip(self.wanted, self.bwd.outputs):
+            grads[i] = None if g is None else g.clone()
+        return grads
+
+
+class _GraphedRender(torch.autograd.Function):
+    """A differentiable frame as two graph replays: the forward's in
+    ``forward``, the backward's in ``backward``; the image and the
+    gradients are fresh tensors. Inputs: the ``_GradFrame``, then
+    ``_frame_tensors``' list."""
+
+    @staticmethod
+    def forward(ctx, entry, *inputs):
+        ctx.entry, ctx.token = entry, object()
+        ctx.inputs, ctx.versions = inputs, [t._version for t in inputs]
+        entry.forward(inputs, ctx.token)
+        return entry.image.clone()
+
+    @staticmethod
+    def backward(ctx, grad_image):
+        entry = ctx.entry
+        if entry.current is not ctx.token:  # a later frame's forward replaced the aux
+            if [t._version for t in ctx.inputs] != ctx.versions:
+                raise RuntimeError("render_rows_kernel: a scene or camera tensor was modified "
+                                   "in place between the frame's forward and its backward")
+            entry.forward(ctx.inputs, ctx.token)
+        return (None, *entry.backward(grad_image))
+
+
+def _frame_key(scene: Scene, camera: camera_ops.Camera, row0: int, rows: int,
+               polish_iters: int, bounces: int, shadow_iters: int, wants_grad: bool) -> tuple:
+    """The key of a frame's graph: what the capture fixed on the host (the
+    statics, the iteration counts, the rows and the image's size) and the
+    tables' shapes, dtypes, devices and, for a differentiable frame, which
+    of them require grad. The camera's and the tables' values are not in it."""
+    return (wants_grad, _statics_for(scene.coefs), (scene.width, scene.height),
+            int(row0), int(rows), int(polish_iters), bounces, shadow_iters,
+            tuple((tuple(t.shape), t.dtype, t.device, wants_grad and t.requires_grad)
+                  for t in _frame_tensors(scene, camera)))
+
+
+def _render_rows_graphed(scene: Scene, camera: camera_ops.Camera, row0: int, rows: int,
+                         polish_iters: int, bounces, shadow_iters, wants_grad: bool):
+    """``_render_rows_eager`` as a replayed CUDA graph of the frame's key
+    (``_frame_key``, ``graphs.GraphCache``)."""
+    bounces, shadow_iters = _iteration_counts(scene, polish_iters, bounces, shadow_iters)
+    key = _frame_key(scene, camera, row0, rows, polish_iters, bounces, shadow_iters,
+                     wants_grad)
+    n_cubic, slots = key[1][1], _slot_tables(scene.coefs)
+    inputs = _frame_tensors(scene, camera)
+
+    def body(*tensors):
+        s, c = _with_tensors(dataclasses.replace(scene, light_is_spherical=tensors[-1]),
+                             tensors[:-1])
+        tables, kwargs = _pack(s, c, row0, rows, n_cubic, slots, polish_iters, bounces,
+                               shadow_iters)
+        if wants_grad:
+            return PackedRender.apply(*tables, kwargs)
+        return render_fwd(*tables, **kwargs)
+
+    device = scene.coefs.device
+    entry = _FRAMES.lookup(key, lambda: (_GradFrame if wants_grad else graphs.Graph)(
+        device, body, inputs))
+    if entry is None:
+        return graphs.warmup(device, lambda: body(*inputs))
+    if wants_grad:
+        return _GraphedRender.apply(entry, *inputs)
+    return entry(inputs)
+
+
+def _render_rows_eager(scene: Scene, camera: camera_ops.Camera, row0: int, rows: int,
+                       *, polish_iters: int = 3, bounces: int | None = None,
+                       shadow_iters: int | None = None) -> torch.Tensor:
+    """``render_rows_kernel``'s eager body: the packing, then one
+    ``render_fwd`` launch, through ``PackedRender`` when differentiable."""
+    tables, kwargs = pack_frame(scene, camera, row0, rows, polish_iters=polish_iters,
+                                bounces=bounces, shadow_iters=shadow_iters)
+    if _wants_grad(scene, camera):
+        return PackedRender.apply(*tables, kwargs)
+    return render_fwd(*tables, **kwargs)
+
+
 def render_rows_kernel(scene: Scene, camera: camera_ops.Camera, row0: int, rows: int,
                        *, polish_iters: int = 3, bounces: int | None = None,
                        shadow_iters: int | None = None) -> torch.Tensor:
@@ -355,12 +510,20 @@ def render_rows_kernel(scene: Scene, camera: camera_ops.Camera, row0: int, rows:
     tables: a torch tensor is never abstract. ``bounces=None`` runs the
     reflection chain to ``max_reflections`` when any object reflects.
 
+    On CUDA tables the call replays a CUDA graph of its key, as the JAX
+    entry launches the executable that ``jax.jit`` compiled for its static
+    arguments (``render/graphs.py``): the first call of a key runs eagerly,
+    the second captures the graph, and the result is a fresh tensor. On
+    CPU tables, inside ``graphs.eager()`` and inside a capture it runs
+    eagerly (``_render_rows_eager``).
+
     Differentiable when a scene or camera tensor requires grad (see
-    ``PackedRender``); the gradients of row blocks sum to the frame's. The
-    fused backward covers scenes with at least one object and at most 31
-    lights; for any other scene this row-block form is forward-only, as
-    ``render_rows_pallas`` is (:2183-2190): a gradient raises
-    ``NotImplementedError``, and ``render_image_kernel`` gives it.
+    ``PackedRender``); on the card the forward and the backward each replay
+    a graph and the gradients are fresh tensors. The gradients of row blocks
+    sum to the frame's. The fused backward covers scenes with at least one
+    object and at most 31 lights; for any other scene this row-block form
+    is forward-only, as ``render_rows_pallas`` is (:2183-2190): a gradient
+    raises ``NotImplementedError``, and ``render_image_kernel`` gives it.
     """
     wants_grad = _wants_grad(scene, camera)
     if wants_grad and not _fused_backward_encodes(scene):
@@ -370,11 +533,11 @@ def render_rows_kernel(scene: Scene, camera: camera_ops.Camera, row0: int, rows:
             f"and at most {MAX_AUX_LIGHTS} lights; render the full frame with "
             "render_image_kernel, whose gradient recomputes such scenes through the "
             "plain pipeline")
-    tables, kwargs = pack_frame(scene, camera, row0, rows, polish_iters=polish_iters,
-                                bounces=bounces, shadow_iters=shadow_iters)
-    if wants_grad:
-        return PackedRender.apply(*tables, kwargs)
-    return render_fwd(*tables, **kwargs)
+    if graphs.active(scene.coefs.device):
+        return _render_rows_graphed(scene, camera, row0, rows, polish_iters, bounces,
+                                    shadow_iters, wants_grad)
+    return _render_rows_eager(scene, camera, row0, rows, polish_iters=polish_iters,
+                              bounces=bounces, shadow_iters=shadow_iters)
 
 
 def render_image_kernel(scene: Scene, camera: camera_ops.Camera | None = None,
@@ -383,9 +546,10 @@ def render_image_kernel(scene: Scene, camera: camera_ops.Camera | None = None,
     """Render a full frame -> [H, W, 3] f32 on the scene's device, row 0 at
     the bottom: the counterpart of ``render_image_pallas``.
 
-    Differentiable: with the fused backward (``PackedRender``) where it
-    encodes the scene, else through ``PipelineGradRender``, whose backward
-    recomputes the frame through the plain pipeline.
+    Differentiable: with the fused backward (``PackedRender``, replayed as
+    CUDA graphs on the card, ``render_rows_kernel``) where it encodes the
+    scene, else through ``PipelineGradRender``, whose backward recomputes
+    the frame through the plain pipeline and which stays eager.
 
     ``camera`` defaults to the reference pose. ``shadow_iters`` sets the
     Newton steps of the shadow-occlusion solves, clamped to
@@ -394,7 +558,7 @@ def render_image_kernel(scene: Scene, camera: camera_ops.Camera | None = None,
     if camera is None:
         camera = camera_ops.Camera.initial(torch.float32, scene.coefs.device)
     if _wants_grad(scene, camera) and not _fused_backward_encodes(scene):
-        kwargs =dict(polish_iters=polish_iters, bounces=bounces, shadow_iters=shadow_iters)
+        kwargs = dict(polish_iters=polish_iters, bounces=bounces, shadow_iters=shadow_iters)
         return PipelineGradRender.apply(scene, kwargs, *_grad_tensors(scene, camera))
     return render_rows_kernel(scene, camera, 0, scene.height,
                               polish_iters=polish_iters, bounces=bounces,
