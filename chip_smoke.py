@@ -76,7 +76,8 @@ result line):
    t and dF/dt within 1e-4 relative), weighted by the
    cotangent of 7a;
 8e. the pipeline's times by CUDA events (FAST and GOLDEN forward, fwd+bwd,
-   the 33-light fallback's fwd+bwd) with the peak device memory of each;
+   the 33-light fallback's fwd+bwd) with the peak device memory of each,
+   eager (``graphs.eager()``, as in every earlier run; 9f times the graphs);
 9a. the fit's main path: ``fit scenes/dingdong.yml --steps 5`` in-process
    (auto resolves to the kernel route; the counts set to 0 just before):
    5 render_fwd launches with aux and 5 render_bwd, plus the one forward
@@ -84,7 +85,8 @@ result line):
    alone timed by CUDA events beside 7e's fwd+bwd call;
 9b. the BASELINE.json inverse configuration: clebsch 800x600, coefs and
    light colours perturbed by 0.6, 5 steps through the kernels and 3 with
-   the soft loss (tau 0.15) through the pipeline by row blocks; the loss
+   the soft loss (tau 0.15) through the pipeline by row blocks (a warm-up,
+   a capture and a replay of the step's graph; no kernel launch); the loss
    falls on both routes; each step's time and the peak device memory;
 9c. ``render_rays_soft`` at tau 1e-4 against the hard pipeline frame on
    clebsch and quadratic at full size: under 2% of pixels apart by more
@@ -116,6 +118,27 @@ result line):
    copy each; the launches each replay adds and each capture's host time;
    torch.profiler over 8 graphed calls of each path; the memory that one
    forward-frame, fwd+bwd-frame and fit-step graph keeps on the card;
+9f. the pipeline route as CUDA graphs (the counts set to 0 just before and
+   read at its end): (a) the soft fit of 9b annealed 0.15 -> 0.05 over 5
+   steps by ``tau_schedule`` and (b) the hard pipeline route on dingdong
+   (``backend="torch"``, light colours x0.6, polish 2), each 5 graphed steps
+   giving the losses and parameters of 5 eager steps with the same
+   capturable Adam, bit for bit, through one capture and no kernel launch;
+   (c) ``render_image`` FAST on dingdong, reflection_test, clebsch and
+   cayley and GOLDEN on dingdong and reflection_test, each captured at its
+   second call and replayed at two further poses, bitwise the eager frame
+   (cayley may share clebsch's key), a kept frame unchanged by the next
+   replay, and 20spheres FAST in one shot held eager by the byte bound
+   (``graphs.MAX_GRAPH_BYTES``: 2 of its 3 calls counted in ``over_bound``);
+   (d) 8c's 33-light and 0-object scenes through ``render_image_kernel`` and
+   ``backward()``, the graphed frame and gradients bitwise the eager ones
+   over warm-up, capture and replay, one render_fwd (main) and no render_bwd
+   a frame; (e) CUDA-event times of the eager and graphed soft step, hard
+   pipeline step, FAST frame, GOLDEN frame and fallback fwd+bwd in turns
+   (eager, graphed, graphed, eager), host quiet, then torch.profiler over the
+   same calls (``tpu_ray_tracer_torch.pipeline_profile``: device ops, host
+   and device time, busy share, peak memory; each graphed call's captures,
+   their host time and the bytes its graphs keep);
 10a. the row-sharded path at world size 1 over NCCL, in this process
    (the counts set to 0 just before): ``render_image_sharded`` (kernel
    route) on dingdong 1280x720 equals phase 3's frame bit for bit, and 5
@@ -152,7 +175,7 @@ result line):
    dingdong figures are printed.
 
 The last lines are the card's name and power limit, a {"kernels": [...]}
-line (each kernel's launches on the main paths, 9e's, the sharded ones of
+line (each kernel's launches on the main paths, 9e's, 9f's, the sharded ones of
 10a and of both ranks of 10b and the bench's of 11 included, its time, its plain
 version's, its bound and share of the bound on dingdong 1280x720; no single
 PyTorch call computes either function, so ``library_ms`` is null), and
@@ -191,6 +214,7 @@ FIT_STEPS = 5          # 9a: the CLI's fit on dingdong; 10a-10c: the sharded fit
 FIT_TIMED_STEPS = 8    # 9a: the train step timed alone
 PROFILED_STEPS = 5     # 10a: the world-1 step under torch.profiler, with and without the group
 DEVICE_ONLY_CALLS = 6  # 9e: the device-only readings of a whole call
+PIPE_TIMED_CALLS = 3   # 9f (e): the pipeline route's calls timed, and profiled, a turn
 RANK_TIMEOUT_S = 300   # 10b, 10c: each spawned process
 SHARDED_FIT_RTOL = 1e-5  # 10b against 10a: losses and light colours, relative
 BENCH_TIMEOUT_S = 600  # 11: the bench's child process
@@ -807,19 +831,14 @@ def main() -> int:
                                "where both forwards hit alike")
 
     # --- 8e. the pipeline's times and peak memory (dingdong 1280x720) ---
+    # eager, as in every earlier run: 9f times the graphs beside it
+    from tpu_ray_tracer_torch.render import graphs
+
     pipe_frames = 8
-    with torch.no_grad():
-        ttt.render_image(ding, cams[0])
-        fast_ms, fast_peak = peak_of(lambda: timed_ms(
-            lambda k: ttt.render_image(ding, cams[k]), pipe_frames))
-        golden_ms, golden_peak = peak_of(lambda: timed_ms(
-            lambda k: ttt.render_image(ding, cams[k], ttt.GOLDEN_CONFIG), pipe_frames))
 
     def pipe_fwd_bwd(k):
         (w * ttt.render_image(t_scene, t_cams[k])).sum().backward()
 
-    pipe_fwd_bwd(0)
-    fwd_bwd_pipe_ms, fwd_bwd_peak = peak_of(lambda: timed_ms(pipe_fwd_bwd, pipe_frames))
     fb_leaf = many.light_color.detach().clone().requires_grad_()
     fb_scene = dataclasses.replace(many, light_color=fb_leaf, coefs=many.coefs.clone()
                                    .requires_grad_())
@@ -828,8 +847,17 @@ def main() -> int:
     def fallback_step(k):
         ttt.render_image_kernel(fb_scene, fb_cams[k]).sum().backward()
 
-    fallback_step(0)
-    fallback_ms, fallback_peak = peak_of(lambda: timed_ms(fallback_step, pipe_frames))
+    with graphs.eager():
+        with torch.no_grad():
+            ttt.render_image(ding, cams[0])
+            fast_ms, fast_peak = peak_of(lambda: timed_ms(
+                lambda k: ttt.render_image(ding, cams[k]), pipe_frames))
+            golden_ms, golden_peak = peak_of(lambda: timed_ms(
+                lambda k: ttt.render_image(ding, cams[k], ttt.GOLDEN_CONFIG), pipe_frames))
+        pipe_fwd_bwd(0)
+        fwd_bwd_pipe_ms, fwd_bwd_peak = peak_of(lambda: timed_ms(pipe_fwd_bwd, pipe_frames))
+        fallback_step(0)
+        fallback_ms, fallback_peak = peak_of(lambda: timed_ms(fallback_step, pipe_frames))
     for what, ms, peak, px in (
             ("dingdong 1280x720 pipeline FAST (f32) forward", fast_ms, fast_peak, n_px),
             ("dingdong 1280x720 pipeline GOLDEN (f64) forward", golden_ms, golden_peak, n_px),
@@ -1194,7 +1222,7 @@ def main() -> int:
                 f"{DEVICE_ONLY_CALLS} calls: {ms:.4f} ms ({smi})")
     # one multi-tensor copy of a frame's 11 inputs against one copy each
     # (the graphs used last: dingdong's forward and fwd+bwd frames)
-    fwd_entry = [e for e in frames_cache._entries.values() if isinstance(e, graphs.Graph)][-1]
+    fwd_entry = [e for e in frames_cache.graphs() if isinstance(e, graphs.Graph)][-1]
     src = [t.clone() for t in fwd_entry.inputs]
     copy_ms = {
         "torch._foreach_copy_": timed_ms(
@@ -1203,10 +1231,8 @@ def main() -> int:
             lambda k: [d.copy_(t) for d, t in zip(fwd_entry.inputs, src)], GATE_FRAMES)}
     log("[graphs-time] a frame's 11 inputs into the graph's buffers: " + ", ".join(
         f"{k} {v:.4f} ms" for k, v in copy_ms.items()) + f" a call ({smi})")
-    grad_entry = [e for e in frames_cache._entries.values()
-                  if isinstance(e, kernel_backend._GradFrame)][-1]
-    step_entry = next(e for e in graph_fits["dingdong 1280x720 light_color"]._entries.values()
-                      if e is not None)
+    grad_entry = [e for e in frames_cache.graphs() if isinstance(e, kernel_backend._GradFrame)][-1]
+    step_entry = graph_fits["dingdong 1280x720 light_color"].graphs()[0]
     log(f"[graphs] launches each replay adds: forward frame {fwd_entry.captured.counts}; "
         f"gradient frame forward {grad_entry.fwd.counts}, backward {grad_entry.bwd.counts}; "
         f"fit step {step_entry.captured.counts}")
@@ -1267,6 +1293,162 @@ def main() -> int:
         "when it is dropped): " + ", ".join(f"{k} {v:.1f} MiB" for k, v in pool_mb.items())
         + f" ({smi})")
     log(f"[graphs] phase 9e in {time.perf_counter() - t_graphs:.1f} s")
+
+    # --- 9f. the pipeline route as replayed CUDA graphs ---
+    # (a function of its own: its names must not rebind the earlier phases')
+    def pipeline_graphs() -> int:
+        """Phase 9f; returns the render_fwd launches it made."""
+        from tpu_ray_tracer_torch import pipeline_profile
+
+        t_pipe_graphs = time.perf_counter()
+        zero_counts()
+
+        # (a), (b) pipeline-route fit steps, graphed against eager with the same
+        # capturable Adam: the soft fit annealed by tau_schedule through one
+        # capture, and the hard pipeline route
+        def pipeline_fit(problem, target, eager, taus):
+            params = inverse.extract_params(problem.scene_template.astype(torch.float32),
+                                            problem.param_fields)
+            optimizer = problem.optimizer(params)
+            step = inverse.make_train_step(problem)
+            with graphs.eager() if eager else contextlib.nullcontext():
+                losses = [step(params, optimizer, camera(), target, tau) for tau in taus]
+            return losses, params, step.graphs
+
+        soft_taus = inverse.tau_schedule(0.15, 0.05, FIT_STEPS)
+        for label, (problem, target), taus in (
+                ("soft clebsch 800x600 coefs+light_color, tau 0.15 -> 0.05",
+                 fit_case(clebsch, ["coefs", "light_color"], "torch", soft_tau=0.15), soft_taus),
+                ("hard dingdong 1280x720 light_color, backend torch",
+                 fit_case(ding, ["light_color"], "torch"), [None] * FIT_STEPS)):
+            if inverse.make_loss_fn(problem).use_kernel:
+                raise RuntimeError(f"pipeline graphs fit {label}: not the pipeline route")
+            before = (render_fwd.launches_save_aux, render_bwd.launches)
+            want, want_params, _ = pipeline_fit(problem, target, True, taus)
+            losses, params, cache = pipeline_fit(problem, target, False, taus)
+            launched = (render_fwd.launches_save_aux - before[0], render_bwd.launches - before[1])
+            differ = [k for k in params if not torch.equal(params[k], want_params[k])]
+            log(f"[pipeline-graphs] fit {label}: {FIT_STEPS} graphed steps, losses {losses}, "
+                f"eager {want}; {cache.captures} captures "
+                f"({', '.join(f'{t * 1e3:.1f}' for t in cache.capture_s)} ms), the graph keeps "
+                f"{cache.bytes() / 2**30:.3f} GiB, {cache.over_bound} calls over the byte bound "
+                f"({smi})")
+            if losses != want or differ or cache.captures != 1 or launched != (0, 0):
+                raise RuntimeError(f"pipeline graphs fit {label}: the graphed steps differ from "
+                                   f"the eager ones (params {differ}), {cache.captures} "
+                                   f"captures, kernel launches {launched}")
+
+        # (c) pipeline frames: each key captured at its second call (the
+        # reference pose) and replayed at two further poses, bitwise the eager
+        # frame; a kept frame unchanged; 20spheres in one shot held eager by the
+        # byte bound
+        pipe_cache = pipeline._FRAMES
+        pipe_cache.clear()
+        captures_before, shared_keys = pipe_cache.captures, {}
+        for name, config in (("dingdong", ttt.FAST_CONFIG), ("reflection_test", ttt.FAST_CONFIG),
+                             ("clebsch", ttt.FAST_CONFIG), ("cayley", ttt.FAST_CONFIG),
+                             ("dingdong", ttt.GOLDEN_CONFIG),
+                             ("reflection_test", ttt.GOLDEN_CONFIG)):
+            scene, kind = scenes[name], "FAST" if config is ttt.FAST_CONFIG else "GOLDEN"
+            captured = pipe_cache.captures
+            with torch.no_grad():
+                ttt.render_image(scene, poses["reference"], config)
+                for label, cam in poses.items():
+                    got = ttt.render_image(scene, cam, config)
+                    with graphs.eager():
+                        want = ttt.render_image(scene, cam, config)
+                    if not torch.equal(got, want):
+                        raise RuntimeError(f"pipeline graphs {kind} {name} {label}: the graphed "
+                                           "frame differs from the eager one")
+            new = pipe_cache.captures - captured
+            shared_keys[f"{kind} {name}"] = new == 0
+            if new != 1 and not (name == "cayley" and new == 0):
+                raise RuntimeError(f"pipeline graphs {kind} {name}: {new} captures")
+        with torch.no_grad():
+            kept = ttt.render_image(ding, poses["yaw 91 pitch 2"])
+            copy = kept.clone()
+            ttt.render_image(ding, poses["off"])
+        if not torch.equal(kept, copy):
+            raise RuntimeError("pipeline graphs: a kept frame changed when the next one rendered")
+        log(f"[pipeline-graphs] frames: FAST dingdong, reflection_test, clebsch, cayley and "
+            f"GOLDEN dingdong, reflection_test equal the eager ones bit for bit at "
+            f"{len(poses)} poses ({pipe_cache.captures - captures_before} captures; sharing a "
+            f"clebsch key: {[k for k, v in shared_keys.items() if v]}); a kept frame is unchanged "
+            f"by the next replay; capture host ms "
+            + ", ".join(f"{t * 1e3:.1f}" for t in pipe_cache.capture_s)
+            + f"; the cache keeps {pipe_cache.bytes() / 2**30:.3f} GiB in {len(pipe_cache)} graphs "
+            f"(bound {graphs.MAX_GRAPH_BYTES / 2**30:.0f} GiB) ({smi})")
+        spheres, over = scenes["20spheres"], pipe_cache.over_bound
+        with torch.no_grad():
+            big = [ttt.render_image(spheres, poses["reference"]) for _ in range(3)]
+            with graphs.eager():
+                want = ttt.render_image(spheres, poses["reference"])
+        warm_gib = max(pipe_cache.bytes(key) or 0 for key in pipe_cache._entries) / 2**30
+        log(f"[pipeline-graphs] 20spheres {spheres.width}x{spheres.height} FAST in one shot: its "
+            f"warm-up held {warm_gib:.3f} GiB, over the {graphs.MAX_GRAPH_BYTES / 2**30:.0f} GiB "
+            f"bound: {pipe_cache.over_bound - over} of its 3 calls ran eagerly, counted in "
+            f"over_bound ({smi})")
+        if pipe_cache.over_bound - over != 2 or not all(torch.equal(b, want) for b in big):
+            raise RuntimeError(f"pipeline graphs 20spheres: {pipe_cache.over_bound - over} calls "
+                               "over the byte bound (want 2), or its frames differ")
+        del big, want
+
+        # (d) the >31-light and 0-object gradients (8c's scenes): graphed
+        # forward and backward against eager, bit for bit, one render_fwd a
+        # frame and no render_bwd
+        frames_cache.clear()
+        for label, scene, fields in (("33 lights", many, ("light_color", "coefs")),
+                                     ("0 objects", empty, ("light_color", "bg_color"))):
+            captured = frames_cache.captures
+            for k in range(3):  # warm-up, capture and replay, replay
+                cam = camera(yaw=90.0 + 0.5 * k, pitch=3.0)
+                before = (render_fwd.launches, render_bwd.launches,
+                          render_fwd.launches_by_variant["main"])
+                leaves = {f: getattr(scene, f).detach().clone().requires_grad_() for f in fields}
+                image = ttt.render_image_kernel(dataclasses.replace(scene, **leaves), cam)
+                image.sum().backward()
+                torch.cuda.synchronize()
+                launched = (render_fwd.launches - before[0], render_bwd.launches - before[1],
+                            render_fwd.launches_by_variant["main"] - before[2])
+                with graphs.eager():
+                    want_leaves = {f: getattr(scene, f).detach().clone().requires_grad_()
+                                   for f in fields}
+                    want_image = ttt.render_image_kernel(dataclasses.replace(scene, **want_leaves),
+                                                         cam)
+                    want_image.sum().backward()
+                differ = [f for f in fields if leaves[f].grad is None
+                          or not torch.equal(leaves[f].grad, want_leaves[f].grad)]
+                if differ or launched != (1, 0, 1) or not torch.equal(image, want_image):
+                    raise RuntimeError(f"pipeline graphs fallback {label} call {k}: gradients "
+                                       f"{differ} or the frame differ from eager, launches "
+                                       f"(fwd, bwd, main) {launched}")
+            if frames_cache.captures != captured + 1:
+                raise RuntimeError(f"pipeline graphs fallback {label}: "
+                                   f"{frames_cache.captures - captured} captures")
+            log(f"[pipeline-graphs] fallback {label} 640x480: graphed frame and gradients "
+                f"({', '.join(fields)}) equal the eager ones bit for bit over warm-up, capture and "
+                f"replay; one render_fwd (main) and no render_bwd a frame; the cache's graphs "
+                f"keep {frames_cache.bytes() / 2**30:.3f} GiB ({smi})")
+
+        # (e) times: CUDA events with the host's gaps, in turns (eager, graphed,
+        # graphed, eager), host quiet; then torch.profiler over the same calls
+        # (pipeline_profile: device ops, host and device time, busy share) with
+        # each graphed call's captures and the bytes its graphs keep
+        cases = pipeline_profile.make_cases(dev, PIPE_TIMED_CALLS)
+        for label, factory in cases.values():
+            for mode in ("eager", "graphed", "graphed", "eager"):
+                ms, _ = pipeline_profile.run_case(factory, mode, PIPE_TIMED_CALLS,
+                                                  lambda call: timed_ms(call, PIPE_TIMED_CALLS))
+                log(f"[pipeline-graphs-time] {label}, {mode}: {ms:.4f} ms a call ({smi})")
+        readings = pipeline_profile.profile(
+            cases, ("eager", "graphed"), PIPE_TIMED_CALLS,
+            lambda line: log(f"[pipeline-graphs-profile] {line} ({smi})"))
+        log("[pipeline-graphs-profile] " + json.dumps(readings))
+        log(f"[pipeline-graphs] render_fwd launches in 9f: {render_fwd.launches}")
+        log(f"[pipeline-graphs] phase 9f in {time.perf_counter() - t_pipe_graphs:.1f} s")
+        return render_fwd.launches
+
+    pipe_graph_launches = pipeline_graphs()
 
     # --- 10a. the row-sharded path at world size 1 over NCCL, in process ---
     import datetime
@@ -1470,11 +1652,13 @@ def main() -> int:
         "replaces": "tpu_ray_tracer/render/pallas_backend.py:978",
         "launches": (main_launches + grad_launches["render_fwd"] + cli_launches
                      + fallback_launches + fit_launches["render_fwd"]
-                     + graph_launches["render_fwd"] + sharded_fwd + bench_counts["render_fwd"]),
+                     + graph_launches["render_fwd"] + pipe_graph_launches + sharded_fwd
+                     + bench_counts["render_fwd"]),
         "launches_by_path": {"forward": main_launches, "gradient": grad_launches["render_fwd"],
                              "cli": cli_launches, "fallback": fallback_launches,
                              "fit": fit_launches["render_fwd"],
-                             "graphs": graph_launches["render_fwd"], "sharded": sharded_fwd,
+                             "graphs": graph_launches["render_fwd"],
+                             "pipeline_graphs": pipe_graph_launches, "sharded": sharded_fwd,
                              "bench": bench_counts["render_fwd"]},
         "max_abs_err": worst_abs,
         "worst_bad_px_vs_plain": worst_frac,

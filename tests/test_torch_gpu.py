@@ -4,7 +4,9 @@ pipeline, the gradient fallback and the CLI on the card; the fit's
 kernel-route step, its row-block pipeline backward and the soft render; and
 the row-sharded frame and step over an NCCL group of one rank, the native
 scene loader on the card, the CUDA graphs of frames, gradients and fit
-steps against the eager paths, and the port's bench at full size.
+steps against the eager paths (the kernel route's and the pipeline
+route's, and the bound on the bytes the graphs keep), and the port's bench
+at full size.
 
 This file imports nothing of JAX, so it runs on a machine with a GPU and
 without JAX, from the repository root:
@@ -794,6 +796,132 @@ def test_graphed_train_step_reused_with_a_new_optimizer(cuda):
     again, light = run(step)
     assert first == want and again == want and torch.equal(light, want_light)
     assert step.graphs.captures == captures + 1
+
+
+@pytest.mark.parametrize("name", ["dingdong", "reflection_test"])
+def test_graphed_pipeline_frames_equal_eager(cuda, name):
+    """``render_image`` without a gradient, FAST and GOLDEN: the first call
+    warms up, the second captures and replays, the rest replay; each frame
+    equals the eager one bit for bit, and a kept frame is unchanged by
+    later replays."""
+    from tpu_ray_tracer_torch.render import graphs, pipeline
+
+    pipeline._FRAMES.clear()
+    captures = pipeline._FRAMES.captures
+    scene = _scene(name, cuda)
+    for config in (ttt.FAST_CONFIG, ttt.GOLDEN_CONFIG):
+        frames = []
+        with torch.no_grad():
+            for pose in [POSES[0], POSES[0], POSES[1], ((0.3, 0.1, 0.0), 95.0, 4.0)]:
+                cam = _camera(pose, cuda)
+                frames.append((ttt.render_image(scene, cam, config), cam))
+            kept = [f.clone() for f, _ in frames]
+            for (image, cam), copy in zip(frames, kept):
+                assert torch.equal(image, copy)
+                with graphs.eager():
+                    assert torch.equal(image, ttt.render_image(scene, cam, config))
+    assert pipeline._FRAMES.captures == captures + 2 and pipeline._FRAMES.over_bound == 0
+
+
+def _pipeline_fit(name, fields, cuda, soft_tau=None):
+    from tpu_ray_tracer_torch.diff.inverse import InverseProblem
+
+    scene = _scene(name, cuda)
+    with torch.no_grad():
+        target = ttt.render_image_kernel(scene, polish_iters=2, bounces=0)
+    perturbed = dataclasses.replace(
+        scene, **{f: getattr(scene, f) * (0.97 if f == "coefs" else 0.6) for f in fields})
+    return InverseProblem(scene_template=perturbed,
+                          config=ttt.RenderConfig("float32", 2, chunk_px=None),
+                          param_fields=fields, learning_rate=5e-2, backend="torch",
+                          soft_tau=soft_tau), target
+
+
+@pytest.mark.parametrize("case", ["soft", "hard"])
+def test_graphed_pipeline_fit_steps_equal_eager(cuda, case):
+    """Five pipeline-route train steps through the step's graph (the soft
+    loss annealed by ``tau_schedule``, or the hard pipeline) give the
+    losses and parameters of five eager steps with the same capturable
+    Adam, bit for bit, through one capture and no kernel launch."""
+    from tpu_ray_tracer_torch.diff.inverse import extract_params, make_train_step, tau_schedule
+    from tpu_ray_tracer_torch.render import graphs
+
+    if case == "soft":
+        fields, taus = ("coefs", "light_color"), tau_schedule(0.15, 0.05, 5)
+        problem, target = _pipeline_fit("clebsch", fields, cuda, soft_tau=0.15)
+    else:
+        fields, taus = ("light_color",), [None] * 5
+        problem, target = _pipeline_fit("dingdong", fields, cuda)
+    cam = _camera(POSES[0], cuda)
+
+    def run(eager):
+        params = extract_params(problem.scene_template.astype(torch.float32), fields)
+        optimizer = problem.optimizer(params)
+        step = make_train_step(problem)
+        with graphs.eager() if eager else torch.enable_grad():
+            losses = [step(params, optimizer, cam, target, tau) for tau in taus]
+        return losses, params, step
+
+    want, want_params, _ = run(True)
+    a0, b0 = render_fwd.launches_save_aux, render_bwd.launches
+    losses, params, step = run(False)
+    assert (render_fwd.launches_save_aux - a0, render_bwd.launches - b0) == (0, 0)
+    assert step.graphs.captures == 1 and step.graphs.over_bound == 0
+    assert losses == want
+    assert all(torch.equal(params[k], want_params[k]) for k in fields)
+
+
+@pytest.mark.parametrize("case", ["33_lights", "no_objects"])
+def test_graphed_fallback_gradient_equals_eager(cuda, case):
+    """The gradient of a scene the fused backward cannot encode, graphed:
+    over warm-up, capture and replay the frame and the gradient equal the
+    eager ones bit for bit, with one render_fwd launch and no render_bwd a
+    frame."""
+    from tpu_ray_tracer_torch.render import graphs, kernel_backend
+
+    kernel_backend._FRAMES.clear()
+    captures = kernel_backend._FRAMES.captures
+    if case == "33_lights":
+        scene, fields = _many_lights_scene(33, cuda, 48, 32), ("light_color", "coefs")
+    else:
+        scene = ttt.build_scene(48, 32, 60.0, [], [tlight.directional(
+            1.0, (0.0, -1.0, 0.0), (1.0, 1.0, 1.0))], bg_color=(0.3, 0.6, 0.9), device=cuda)
+        fields = ("light_color", "bg_color")
+
+    def grads(cam, eager=False):
+        leaves = {f: getattr(scene, f).detach().clone().requires_grad_() for f in fields}
+        with graphs.eager() if eager else torch.enable_grad():
+            image = ttt.render_image_kernel(dataclasses.replace(scene, **leaves), cam)
+            image.sum().backward()
+        return image.detach(), {f: leaf.grad for f, leaf in leaves.items()}
+
+    for k in range(3):
+        cam = _camera(((0.0, 0.0, 0.0), 90.0 + k, 3.0), cuda)
+        f0, b0 = render_fwd.launches, render_bwd.launches
+        image, got = grads(cam)
+        torch.cuda.synchronize()
+        assert (render_fwd.launches - f0, render_bwd.launches - b0) == (1, 0), k
+        want_image, want = grads(cam, eager=True)
+        assert torch.equal(image, want_image), k
+        assert all(torch.equal(got[f], want[f]) for f in fields), k
+    assert kernel_backend._FRAMES.captures == captures + 1
+
+
+def test_pipeline_graph_byte_bound_on_card(cuda, monkeypatch):
+    """With ``MAX_GRAPH_BYTES`` below a frame's warm-up bytes, the frame is
+    never captured: its later calls run eagerly, counted in ``over_bound``,
+    and equal the eager frame bit for bit."""
+    from tpu_ray_tracer_torch.render import graphs, pipeline
+
+    monkeypatch.setattr(pipeline, "_FRAMES", graphs.GraphCache())
+    monkeypatch.setattr(graphs, "MAX_GRAPH_BYTES", 1 << 20)
+    scene, cam = _scene("20spheres", cuda), _camera(POSES[0], cuda)
+    with torch.no_grad():
+        frames = [ttt.render_image(scene, cam) for _ in range(3)]
+        with graphs.eager():
+            want = ttt.render_image(scene, cam)
+    assert pipeline._FRAMES.captures == 0 and pipeline._FRAMES.over_bound == 2
+    assert all(torch.equal(f, want) for f in frames)
 
 
 def test_bench_on_card(cuda):

@@ -47,10 +47,17 @@ def _key(scene, camera, row0=0, rows=None, bounces=0, wants_grad=False):
 class FakeGraphs:
     """``graphs.CudaGraphs`` on the CPU: a capture runs the function once and
     keeps it, and a replay runs it again into the captured outputs and takes
-    back what its wrappers counted, since a real replay runs no Python."""
+    back what its wrappers counted, since a real replay runs no Python. The
+    bytes of a warm-up and of a capture are those of the tensors the
+    function returned (``nbytes``)."""
 
     def __init__(self):
         self.calls = []
+
+    @staticmethod
+    def grown(device, fn):
+        out = fn()
+        return out, nbytes(out)
 
     def warmup(self, device, fn):
         self.calls.append("warmup")
@@ -59,7 +66,7 @@ class FakeGraphs:
     def capture(self, device, fn, pool=None):
         self.calls.append("capture")
         out = fn()
-        return (fn, out), out
+        return (fn, out), out, nbytes(out)
 
     @staticmethod
     def pool(graph):
@@ -74,6 +81,10 @@ class FakeGraphs:
         graphs._restore(before)
         for static, value in zip(graphs._tensors(out), graphs._tensors(new)):
             static.copy_(value)
+
+
+def nbytes(out) -> int:
+    return sum(t.numel() * t.element_size() for t in graphs._tensors(out))
 
 
 @pytest.fixture

@@ -24,10 +24,12 @@ rank r takes rows [r * rows_local, (r + 1) * rows_local) of the frame
 gradients before the clip and the optimizer step, so that every rank takes
 the same step.
 
-On the kernel route on the card, one process, the train step replays one
-CUDA graph (``render/graphs.py``): the gradients' zeroing, the loss's
-forward and backward, the clip and the Adam update, the counterpart of the
-jitted ``train_step``. The optimizer is then ``capturable``.
+On the card, one process, the train step replays one CUDA graph
+(``render/graphs.py``) on either route: the gradients' zeroing, the loss's
+forward and backward (every row block of the pipeline route), the clip and
+the Adam update, the counterpart of the jitted ``train_step``. The optimizer
+is then ``capturable``, and the soft temperature is an input of the graph,
+as it is a traced argument of the JAX step.
 
 Checkpoints are ``.npz`` files with tree-path keys: ``params/<field>`` (the
 camera as ``params/camera/<position|yaw_deg|pitch_deg>``), ``__step__``, and
@@ -199,6 +201,10 @@ class Loss:
         # descent drifts their cubic entries off zero (diff/soft.py).
         self.pair_kinds = (tuple((template.coefs[:, :10].abs() > 0).any(1).tolist())
                            if problem.soft_tau is not None else None)
+        # ... and as a mask on the device, made once: a CUDA graph of the
+        # step cannot copy it from the host
+        self.kinds_mask = (None if self.pair_kinds is None else torch.tensor(
+            self.pair_kinds, dtype=torch.bool, device=template.coefs.device))
         # the fused backward encodes at least one object and at most 31
         # lights; a soft loss is a pipeline feature
         self.use_kernel = (problem.backend == "kernel" and problem.soft_tau is None
@@ -221,7 +227,9 @@ class Loss:
         self.span = (y0, min(rows_local, template.height - y0))
 
     def render_rows(self, params: dict, camera, y0: int, rows: int, tau=None):
-        """Image rows [y0, y0 + rows) -> [rows, W, 3] f32 at the parameters."""
+        """Image rows [y0, y0 + rows) -> [rows, W, 3] f32 at the parameters.
+        ``tau`` (a float or a 0-d tensor on the device; None is
+        ``soft_tau``) is the soft temperature."""
         scene = apply_params(self.template, params)
         camera = params.get("camera", camera)
         polish = self.problem.config.polish_iters
@@ -237,8 +245,8 @@ class Loss:
             from .soft import render_rays_soft
 
             return render_rays_soft(scene, origin, dirs, polish_iters=polish,
-                                    tau=self.problem.soft_tau if tau is None else float(tau),
-                                    pair_kinds=self.pair_kinds)
+                                    tau=self.problem.soft_tau if tau is None else tau,
+                                    pair_kinds=self.kinds_mask)
         return render_rays(scene, origin, dirs, polish_iters=polish, bounces=self.bounces)
 
     def block_sse(self, params: dict, camera, target, y0: int, rows: int, tau=None):
@@ -300,12 +308,19 @@ def make_train_step(problem: InverseProblem, group=None):
     with a process group, this rank's rows, then the all-reduce), clip to
     ``grad_clip`` if set, take the optimizer step, return the loss.
 
-    On the kernel route on the card the whole step replays one CUDA graph,
-    the counterpart of the jitted ``train_step`` (``render/graphs.py``). Its
-    key is the statics of the coefficients the step renders with, derived
+    On the card the whole step replays one CUDA graph, the counterpart of
+    the jitted ``train_step`` (``render/graphs.py``), on either route. Its
+    key is the route's statics, the inputs' and parameters' shapes and
+    dtypes and the optimizer's hyper-parameters. On the kernel route the
+    statics are those of the coefficients the step renders with, derived
     before every step from the current iterate (a step whose update changes
-    them replays, or captures, the graph of the new key), the inputs' and
-    parameters' shapes and the optimizer's hyper-parameters. The graph reads
+    them replays, or captures, the graph of the new key); on the pipeline
+    route, which derives nothing from the coefficients, they are the row
+    blocks (``block_rows``, the span), the bounces, the pair kinds and the
+    config's dtype and polish, so a fit keeps one key. The soft temperature
+    (``tau``, else ``soft_tau``) is copied into a 0-d input of the graph
+    before each replay: its value is not in the key, and one capture serves
+    a whole ``tau_schedule``, as one JAX compile does. The graph reads
     the parameters and the optimizer's state where they were at capture; a
     call where they moved (``load_checkpoint`` gives new state tensors)
     captures anew. A step whose parameters have no optimizer state yet (a
@@ -315,12 +330,13 @@ def make_train_step(problem: InverseProblem, group=None):
     step's gradient, in the graph's memory, and every parameter's version
     counter is bumped as an eager update bumps it.
 
-    The step stays eager on the CPU, on the pipeline route (a soft loss,
-    more than 31 lights or no object), with a process group of more than one
+    The step stays eager on the CPU, with a process group of more than one
     rank (gloo's all-reduce cannot be captured, NCCL's across cards is
     unverified), with an optimizer that is not ``capturable``, with a camera
-    that requires grad without being a parameter, and inside
-    ``graphs.eager()``. ``train_step.graphs`` is its ``GraphCache``."""
+    that requires grad without being a parameter, inside ``graphs.eager()``,
+    and where its key's warm-up held more than ``graphs.MAX_GRAPH_BYTES``
+    (counted in the cache's ``over_bound``). ``train_step.graphs`` is its
+    ``GraphCache``."""
     loss_fn = make_loss_fn(problem, group)
 
     def eager_step(params, optimizer, camera, target, tau=None):
@@ -337,22 +353,22 @@ def make_train_step(problem: InverseProblem, group=None):
         tensors = param_tensors(params)
         fixed_camera = ([] if "camera" in params
                         else [camera.position, camera.yaw_deg, camera.pitch_deg])
-        if not (loss_fn.use_kernel and loss_fn.n_ranks == 1 and graphs.active(target.device)
+        if not (loss_fn.n_ranks == 1 and graphs.active(target.device)
                 and all(g.get("capturable") for g in optimizer.param_groups)
                 and not any(t.requires_grad for t in fixed_camera)):
             return float(eager_step(params, optimizer, camera, target, tau))
-        # the host half of the frame, outside any capture
-        coefs = params.get("coefs", loss_fn.template.coefs)
-        statics = _statics_for(coefs)
-        _slot_tables(coefs)
+        if loss_fn.use_kernel:  # the host half of the frame, outside any capture
+            _slot_tables(params.get("coefs", loss_fn.template.coefs))
         inputs = [target, *fixed_camera]
-        hyper = tuple(tuple((k, v) for k, v in sorted(g.items()) if k != "params")
-                      for g in optimizer.param_groups)
-        key = (statics, tuple((tuple(t.shape), t.dtype) for t in inputs + tensors), hyper)
+        if problem.soft_tau is not None:
+            inputs.append(_tau_tensor(problem.soft_tau if tau is None else tau, target.device))
+        key = _step_key(loss_fn, params, optimizer, inputs)
 
-        def body(target, *camera):
+        def body(target, *rest):
+            camera, tau = rest[:len(fixed_camera)], rest[len(fixed_camera):]
             return eager_step(params, optimizer,
-                              camera_ops.Camera(*camera) if camera else None, target)
+                              camera_ops.Camera(*camera) if camera else None, target,
+                              tau[0] if tau else None)
 
         def make():
             return _StepGraph(target.device, body, inputs, tensors, optimizer)
@@ -361,20 +377,41 @@ def make_train_step(problem: InverseProblem, group=None):
         # Captured, that zero-fill would run again at every replay, so a
         # step with no state yet is a warm-up, whether or not the key has a
         # graph (a new optimizer, or new parameters, under a cached key).
-        if all(optimizer.state.get(t) for t in tensors):
-            entry = cache.lookup(key, make)
-        else:
-            cache.seen(key)
-            entry = None
-        if entry is None:
-            return float(graphs.warmup(
-                target.device, lambda: eager_step(params, optimizer, camera, target, tau)))
-        if entry.guard != _step_guard(tensors, optimizer):
-            entry = cache.recapture(key, make)
-        return entry(inputs, tensors)
+        return float(cache.run(
+            key, target.device, make,
+            lambda: eager_step(params, optimizer, camera, target, tau), inputs, tensors,
+            warm=not all(optimizer.state.get(t) for t in tensors),
+            current=lambda graph: graph.guard == _step_guard(tensors, optimizer)))
 
     train_step.graphs = cache
     return train_step
+
+
+def _step_key(loss_fn: Loss, params: dict, optimizer, inputs: list) -> tuple:
+    """The key of a train step's graph (``make_train_step``): the route's
+    statics, the inputs' and parameters' shapes and dtypes, and the
+    optimizer's hyper-parameters. ``inputs`` are the graph's inputs: the
+    target, a camera that is not a parameter, and the soft temperature."""
+    config = loss_fn.problem.config
+    if loss_fn.use_kernel:
+        route = ("kernel", _statics_for(params.get("coefs", loss_fn.template.coefs)))
+    else:
+        route = ("pipeline", loss_fn.block_rows, loss_fn.span, loss_fn.bounces,
+                 loss_fn.pair_kinds, config.geom_dtype, config.polish_iters)
+    hyper = tuple(tuple((k, v) for k, v in sorted(g.items()) if k != "params")
+                  for g in optimizer.param_groups)
+    return (route, tuple((tuple(t.shape), t.dtype) for t in inputs + param_tensors(params)),
+            hyper)
+
+
+def _tau_tensor(tau, device) -> torch.Tensor:
+    """The temperature as a 0-d f64 tensor on the device, written by a fill
+    (a float is never copied from the host). ``render_rays_soft`` casts it
+    to the geometry's dtype as it casts a float, so both give the same
+    bits."""
+    if isinstance(tau, torch.Tensor):
+        return tau.detach().to(device=device, dtype=torch.float64).reshape(())
+    return torch.full((), float(tau), dtype=torch.float64, device=device)
 
 
 def _step_guard(tensors, optimizer) -> tuple:

@@ -75,6 +75,11 @@ def _normalized_qr(t3, t2, t1, t0):
 
 
 def _kinds_tensor(pair_kinds, like):
+    """The per-object cubic-class mask on ``like``'s device: a bool tensor as
+    given, or one made from a tuple (a copy from the host, which a CUDA graph
+    cannot capture: a graphed caller passes the tensor)."""
+    if isinstance(pair_kinds, torch.Tensor):
+        return pair_kinds
     return torch.tensor([bool(k) for k in pair_kinds], dtype=torch.bool, device=like.device)
 
 
@@ -86,8 +91,9 @@ def pair_coverage(coefs, origin, dir, pair_kinds=None, quad_width: float = 0.01)
     Cubic rays use the depressed cubic's discriminant; quadric rays the
     quadratic discriminant ``t1^2 - 4 t2 t0`` with a transition width of
     ``quad_width`` of the coefficient scale; linear rays +1 (no pair).
-    ``pair_kinds`` (a per-object tuple, True = cubic class, derived from the
-    problem's template) pins which discriminant each object uses while its
+    ``pair_kinds`` (per object, True = cubic class, derived from the
+    problem's template: a tuple, or the same as a bool tensor on the
+    coefficients' device) pins which discriminant each object uses while its
     coefficients drift during descent; None classifies per ray by
     ``|t3| > EPS``."""
     t3, t2, t1, t0 = ray_poly_coeffs(coefs, origin, dir)
@@ -194,7 +200,7 @@ def _shade_at(scene: Scene, origin, dir, t_all, polish_iters: int):
     return torch.where(res.hit[..., None], res.lit_color, bg), res.hit, res.idx
 
 
-def render_rays_soft(scene: Scene, origin, dir, *, polish_iters: int = 3, tau: float = 0.05,
+def render_rays_soft(scene: Scene, origin, dir, *, polish_iters: int = 3, tau=0.05,
                      pair_kinds=None, quad_width: float = 0.01):
     """Soft-visibility render -> [..., 3] f32 (bounce-free).
 
@@ -202,9 +208,13 @@ def render_rays_soft(scene: Scene, origin, dir, *, polish_iters: int = 3, tau: f
     render (branch B), with ``alpha = sigmoid(-delta_n / tau)`` of the
     pixel's governing object: the selected hit where A hits, else the object
     closest to producing a pair. Converges to the hard render as tau -> 0.
-    ``tau`` is a plain float; ``pair_kinds`` the static per-object
-    cubic-class mask (pass it whenever coefficients are optimized);
-    ``quad_width`` the quadric silhouette transition width."""
+    ``tau`` is a float or a 0-d tensor on the scene's device (the
+    counterpart of JAX's traced temperature: a CUDA graph reads it from a
+    buffer, so one capture serves any value); either divides as a tensor of
+    the geometry's dtype, so both give the same bits. ``pair_kinds`` the
+    static per-object cubic-class mask, a tuple or a bool tensor (pass it
+    whenever coefficients are optimized); ``quad_width`` the quadric
+    silhouette transition width."""
     if scene.n_objects == 0:
         # no objects, no roots, no pair events: the background, as the hard
         # pipeline's short-circuit, differentiable in bg_color
@@ -223,5 +233,6 @@ def render_rays_soft(scene: Scene, origin, dir, *, polish_iters: int = 3, tau: f
     # the selection index is discrete: no gradient
     idx_gov = torch.where(hit_a, idx_a, torch.argmin(delta_n, dim=-1)).detach()
     d_sel = torch.gather(delta_n, -1, idx_gov[..., None])[..., 0]
+    tau = torch.as_tensor(tau, dtype=d_sel.dtype, device=d_sel.device)
     alpha = torch.sigmoid(-d_sel / tau)[..., None]
     return alpha * img_a + (1.0 - alpha) * img_b

@@ -22,12 +22,19 @@ A captured graph reads and writes fixed addresses, so:
   the graph's key: a call whose key differs replays, or captures, another
   graph. No ``.cpu()``, ``.item()`` or ``float()`` runs inside a capture.
 
-``GraphCache`` holds the graphs of one caller, at most ``MAX_GRAPHS``, and
-drops the least recently used. A key's first use runs eagerly on a side
-stream: that is the warm-up, which also builds the kernels and sets their
-launch attributes outside any capture. Its second use captures the graph on
-that stream and replays it, and later uses replay. So a call made once (a
-scene rendered once) pays no capture.
+``GraphCache`` holds the graphs of one caller, at most ``MAX_GRAPHS`` keys
+and ``MAX_GRAPH_BYTES`` of device memory, and drops the least recently used.
+A key's first use runs eagerly on a side stream: that is the warm-up, which
+also builds the kernels and sets their launch attributes outside any
+capture, and the bytes it adds to the device's reserved memory (the
+allocator's cache emptied first) are the key's bytes (a graph keeps its
+private pool, which holds about what the eager call held at its peak). Its
+second use captures the graph on that stream and replays it, and later uses
+replay (``GraphCache.run``). So a call made once (a scene rendered once)
+pays no capture. A key whose bytes exceed the bound alone
+(the plain pipeline's one-shot frame of a large scene) is never captured:
+it runs eagerly on the current stream at every use, and ``over_bound``
+counts those calls.
 
 Launch accounting. The kernels' wrappers count the launches they make
 (``render_fwd.launches`` and the rest, ``launch_counts``). A capture runs
@@ -55,8 +62,13 @@ from .fwd_kernel import render_fwd
 
 # Graphs a cache keeps (keys seen once included); the least recently used
 # goes first. Each keeps its private memory pool on the card (chip_smoke.py
-# 9e (e) measures one).
+# 9e (e) and 9f (e) measure them).
 MAX_GRAPHS = 16
+# Device memory the graphs of one cache may keep (``GraphCache.bytes``): a
+# kernel frame's graph keeps ~14-70 MiB, a plain pipeline frame's or fit
+# step's ~0.2-1.5 GiB, the 33-light 640x480 gradient's ~5.2 GiB, and the
+# warm-up of 20spheres 800x600 in one shot ~29 GiB (chip_smoke.py 9e, 9f).
+MAX_GRAPH_BYTES = 8 << 30
 
 
 def _counters():
@@ -122,6 +134,18 @@ class CudaGraphs:
             self._streams[index] = torch.cuda.Stream(index)
         return self._streams[index]
 
+    @staticmethod
+    def grown(device, fn):
+        """(``fn()``, the bytes it added to the device's reserved memory).
+        The device is synchronized and the allocator's cache emptied first,
+        so the growth is about what ``fn`` held at its peak above the memory
+        in use before it. The peak statistics are left as they are."""
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_reserved(device)
+        out = fn()
+        return out, torch.cuda.memory_reserved(device) - before
+
     def warmup(self, device, fn):
         """``fn()`` on the side stream, ordered after the current stream's
         work and before its later work."""
@@ -136,12 +160,17 @@ class CudaGraphs:
         return out
 
     def capture(self, device, fn, pool=None):
-        """(graph, ``fn()``'s outputs) from a capture of ``fn`` on the side
-        stream into a private memory pool, or into ``pool``."""
+        """(graph, ``fn()``'s outputs, the bytes the capture added to the
+        device's reserved memory, ``grown``) from a capture of ``fn`` on the
+        side stream into a private memory pool, or into ``pool``."""
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=pool, stream=self._side(device)):
-            out = fn()
-        return graph, out
+
+        def run():
+            with torch.cuda.graph(graph, pool=pool, stream=self._side(device)):
+                return fn()
+
+        out, nbytes = self.grown(device, run)
+        return graph, out, nbytes
 
     @staticmethod
     def pool(graph):
@@ -179,6 +208,7 @@ class Captured(NamedTuple):
     outputs: object     # the graph's static outputs, rewritten by each replay
     counts: dict        # the launches each replay makes, by ``launch_counts`` name
     held: list          # what ``hold`` kept alive for the graph
+    nbytes: int = 0     # the device memory its capture reserved (its pool's growth)
 
 
 def hold(value):
@@ -207,14 +237,14 @@ def capture(device, fn, pool=None) -> Captured:
     outer, _STATE.held = getattr(_STATE, "held", None), []
     try:
         with eager():
-            graph, out = BACKEND.capture(device, fn, pool)
+            graph, out, nbytes = BACKEND.capture(device, fn, pool)
         after = launch_counts()
         held = _STATE.held
     finally:
         _restore(before)
         _STATE.held = outer
     return Captured(graph, out, {k: after[k] - before[k] for k in after if after[k] != before[k]},
-                    held)
+                    held, nbytes)
 
 
 def replay(captured: Captured) -> None:
@@ -237,6 +267,7 @@ class Graph:
         self.fn = fn  # its closure may hold tensors the graph reads
         self.inputs = [t.detach().clone() for t in inputs]
         self.captured = capture(device, lambda: fn(*self.inputs))
+        self.nbytes = self.captured.nbytes
 
     def load(self, inputs) -> None:
         """Copy the call's tensors into the static inputs."""
@@ -251,46 +282,113 @@ class Graph:
 
 
 class GraphCache:
-    """The graphs of one caller by key, at most ``MAX_GRAPHS``.
+    """The graphs of one caller by key, at most ``MAX_GRAPHS`` keys and
+    ``MAX_GRAPH_BYTES`` of graphs.
 
-    ``lookup(key, make)`` returns None at a key's first use (the caller then
-    runs its warm-up, ``warmup``), and from its second use the graph that
-    ``make()`` captured then. ``captures`` counts the captures and
-    ``capture_s`` holds the host seconds of each."""
+    ``run`` makes one call of a key: ``fn()`` at the key's first use, its
+    warm-up, which measures the key's bytes; from its second use a replay of
+    the graph that ``make()`` captured then, after dropping the least
+    recently used graphs until the cache's bytes and the key's fit under the
+    bound. A graph's bytes are then what its capture reserved (``nbytes``),
+    which also covers a backward graph that the warm-up did not run. A key
+    whose bytes exceed the bound alone is never captured (or its graph is
+    dropped at once): ``fn()`` runs eagerly at its every use, counted in
+    ``over_bound``. ``captures`` counts the captures and ``capture_s`` holds
+    the host seconds of each."""
 
     def __init__(self):
-        self._entries = collections.OrderedDict()
+        self._entries = collections.OrderedDict()  # key -> [graph or None, bytes or None]
         self.captures = 0
         self.capture_s = []
+        self.over_bound = 0
 
     def __len__(self) -> int:
-        return sum(entry is not None for entry in self._entries.values())
+        return sum(entry[0] is not None for entry in self._entries.values())
+
+    def graphs(self) -> list:
+        """The captured graphs, least recently used first."""
+        return [entry[0] for entry in self._entries.values() if entry[0] is not None]
+
+    def bytes(self, key=None):
+        """The bytes of ``key`` (what its warm-up added to the reserved
+        memory, then what its capture reserved; None if not measured), or
+        with no key the sum over the captured graphs."""
+        if key is not None:
+            entry = self._entries.get(key)
+            return None if entry is None else entry[1]
+        return sum(entry[1] or 0 for entry in self._entries.values() if entry[0] is not None)
 
     def seen(self, key) -> bool:
         """Record a use of ``key``; whether it was used before."""
         if key in self._entries:
             self._entries.move_to_end(key)
             return True
-        self._entries[key] = None
+        self._entries[key] = [None, None]
         while len(self._entries) > MAX_GRAPHS:
             self._entries.popitem(last=False)
         return False
 
+    def _over(self, key) -> bool:
+        nbytes = self._entries[key][1]
+        return nbytes is not None and nbytes > MAX_GRAPH_BYTES
+
     def lookup(self, key, make):
-        if not self.seen(key):
+        """The key's graph, captured by ``make()`` at its second use; None at
+        its first use and over the bound."""
+        if not self.seen(key) or self._over(key):
             return None
-        if self._entries[key] is None:
-            self.recapture(key, make)
-        return self._entries[key]
+        if self._entries[key][0] is None:
+            return self.recapture(key, make)
+        return self._entries[key][0]
+
+    def run(self, key, device, make, fn, *args, warm=False, current=None):
+        """One use of ``key``: ``graph(*args)`` on the key's graph
+        (``lookup``), captured anew where ``current(graph)`` is false (the
+        tensors it reads moved); else ``fn()``: the key's warm-up
+        (``warmup``, its bytes measured by ``CudaGraphs.grown``) at its first
+        use or where ``warm`` asks for one, or over the bound an eager call on
+        the current stream, counted in ``over_bound``."""
+        if warm:
+            self.seen(key)
+            graph = None
+        else:
+            graph = self.lookup(key, make)
+            if graph is not None and current is not None and not current(graph):
+                graph = self.recapture(key, make)
+        if graph is not None:
+            return graph(*args)
+        if key in self._entries and self._over(key):
+            self.over_bound += 1
+            with eager():
+                return fn()
+        out, nbytes = BACKEND.grown(device, lambda: warmup(device, fn))
+        if key in self._entries:
+            self._entries[key][1] = nbytes
+        return out
+
+    def _make_room(self, need: int) -> None:
+        """Drop the least recently used graphs until ``need`` more bytes fit."""
+        for entry in self._entries.values():
+            if self.bytes() + need <= MAX_GRAPH_BYTES:
+                return
+            entry[0] = None
 
     def recapture(self, key, make):
-        """Capture the key's graph anew (its inputs moved), and return it."""
-        self._entries[key] = None  # drop the old graph before the new one's pool
+        """Capture the key's graph anew (its inputs moved), and return it
+        (None if it is over the bound)."""
+        entry = self._entries[key]
+        entry[0] = None  # drop the old graph before the new one's pool
+        self._make_room(entry[1] or 0)
         t0 = time.perf_counter()
-        self._entries[key] = make()
+        graph = make()
         self.capture_s.append(time.perf_counter() - t0)
         self.captures += 1
-        return self._entries[key]
+        entry[1] = getattr(graph, "nbytes", entry[1])
+        if self._over(key):
+            return None
+        self._make_room(entry[1] or 0)
+        entry[0] = graph
+        return graph
 
     def clear(self) -> None:
         self._entries.clear()

@@ -35,9 +35,10 @@ the card replays one CUDA graph (``render/graphs.py``): the packing and the
 launch, captured for the frame's key (the statics, the iteration counts,
 the rows, the tables' shapes and which of them require grad); a
 differentiable frame replays a forward graph and, in its backward, a
-backward graph. ``pack_frame`` is split for it into a host half (the
-statics and slot tables, memoised) and ``_pack``, device operations only.
-``PipelineGradRender`` stays eager.
+backward graph; so does ``PipelineGradRender``, whose backward graph holds
+the pipeline's recompute. ``pack_frame`` is split for it into a host half
+(``_host_half``: the statics and slot tables, memoised) and ``_pack``,
+device operations only.
 """
 
 from __future__ import annotations
@@ -246,10 +247,8 @@ def pack_frame(scene: Scene, camera: camera_ops.Camera, row0: int, rows: int,
                shadow_iters: int | None = None):
     """(tables, keyword arguments) of one ``render_fwd`` call for image rows
     [row0, row0 + rows), on the scene's device."""
-    bounces, shadow_iters = _iteration_counts(scene, polish_iters, bounces, shadow_iters)
-    _perm, n_cubic, _posdef = _statics_for(scene.coefs)
-    return _pack(scene, camera, row0, rows, n_cubic, _slot_tables(scene.coefs),
-                 polish_iters, bounces, shadow_iters)
+    return _pack(scene, camera, row0, rows,
+                 **_host_half(scene, polish_iters, bounces, shadow_iters))
 
 
 class PackedRender(torch.autograd.Function):
@@ -339,16 +338,18 @@ class PipelineGradRender(torch.autograd.Function):
     occlusion is a non-differentiable boolean (detached in the pipeline)
     and the disagreement set is the measure-zero root-selection boundary.
 
-    Inputs: the scene (its tensors are replaced by the next ones), the
-    render's keyword dict, then ``_grad_tensors``' 10 tensors. A requested
-    gradient that the frame does not depend on (a light's, with no object)
-    is zero.
+    Inputs: the scene (its differentiable tensors are replaced by the next
+    ones), the frame's host half (``_host_half``: the iteration counts and
+    the slot statics, derived outside any capture), then ``_grad_tensors``'
+    10 tensors. A requested gradient that the frame does not depend on (a
+    light's, with no object) is zero. On the card the forward and the
+    backward each replay a CUDA graph (``_pipeline_grad_frame``).
     """
 
     @staticmethod
-    def forward(ctx, scene, kwargs, *tensors):
+    def forward(ctx, scene, host, *tensors):
         scene, camera = _with_tensors(scene, tensors)
-        tables, fwd_kwargs = pack_frame(scene, camera, 0, scene.height, **kwargs)
+        tables, fwd_kwargs = _pack(scene, camera, 0, scene.height, **host)
         ctx.scene, ctx.kwargs = scene, fwd_kwargs
         ctx.save_for_backward(*tensors)
         return render_fwd(*tables, **fwd_kwargs)
@@ -371,6 +372,14 @@ class PipelineGradRender(torch.autograd.Function):
             g = next(grads) if w else None
             out.append(torch.zeros_like(t) if w and g is None else g)
         return (None, None, *out)
+
+
+def _host_half(scene: Scene, polish_iters: int, bounces, shadow_iters) -> dict:
+    """``_pack``'s keyword arguments that ``pack_frame`` derives on the host:
+    the iteration counts and the slot statics, memoised per table."""
+    bounces, shadow_iters = _iteration_counts(scene, polish_iters, bounces, shadow_iters)
+    return dict(n_cubic=_statics_for(scene.coefs)[1], slots=_slot_tables(scene.coefs),
+                polish_iters=int(polish_iters), bounces=bounces, shadow_iters=shadow_iters)
 
 
 def _frame_tensors(scene: Scene, camera: camera_ops.Camera) -> list:
@@ -406,6 +415,11 @@ class _GradFrame:
             pool=graphs.pool_of(self.fwd))
         self.image = image.detach()
         self.current = None
+        self.nbytes = self.fwd.nbytes + self.bwd.nbytes
+
+    def __call__(self, inputs) -> torch.Tensor:
+        """The frame of ``inputs``, differentiable (``_GraphedRender``)."""
+        return _GraphedRender.apply(self, *inputs)
 
     def forward(self, inputs, token) -> None:
         with torch.no_grad():
@@ -462,29 +476,28 @@ def _render_rows_graphed(scene: Scene, camera: camera_ops.Camera, row0: int, row
                          polish_iters: int, bounces, shadow_iters, wants_grad: bool):
     """``_render_rows_eager`` as a replayed CUDA graph of the frame's key
     (``_frame_key``, ``graphs.GraphCache``)."""
-    bounces, shadow_iters = _iteration_counts(scene, polish_iters, bounces, shadow_iters)
-    key = _frame_key(scene, camera, row0, rows, polish_iters, bounces, shadow_iters,
-                     wants_grad)
-    n_cubic, slots = key[1][1], _slot_tables(scene.coefs)
-    inputs = _frame_tensors(scene, camera)
+    host = _host_half(scene, polish_iters, bounces, shadow_iters)
+    key = _frame_key(scene, camera, row0, rows, polish_iters, host["bounces"],
+                     host["shadow_iters"], wants_grad)
 
     def body(*tensors):
         s, c = _with_tensors(dataclasses.replace(scene, light_is_spherical=tensors[-1]),
                              tensors[:-1])
-        tables, kwargs = _pack(s, c, row0, rows, n_cubic, slots, polish_iters, bounces,
-                               shadow_iters)
+        tables, kwargs = _pack(s, c, row0, rows, **host)
         if wants_grad:
             return PackedRender.apply(*tables, kwargs)
         return render_fwd(*tables, **kwargs)
 
-    device = scene.coefs.device
-    entry = _FRAMES.lookup(key, lambda: (_GradFrame if wants_grad else graphs.Graph)(
-        device, body, inputs))
-    if entry is None:
-        return graphs.warmup(device, lambda: body(*inputs))
-    if wants_grad:
-        return _GraphedRender.apply(entry, *inputs)
-    return entry(inputs)
+    return _replay_frame(key, scene.coefs.device, body, _frame_tensors(scene, camera),
+                         wants_grad)
+
+
+def _replay_frame(key, device, body, inputs, differentiable: bool):
+    """``body(*inputs)`` through the graphs of ``key`` in ``_FRAMES``
+    (``GraphCache.run``): the forward graph (``graphs.Graph``) or, when
+    ``differentiable``, the forward and backward graphs (``_GradFrame``)."""
+    return _FRAMES.run(key, device, lambda: (_GradFrame if differentiable else graphs.Graph)(
+        device, body, inputs), lambda: body(*inputs), inputs)
 
 
 def _render_rows_eager(scene: Scene, camera: camera_ops.Camera, row0: int, rows: int,
@@ -540,16 +553,39 @@ def render_rows_kernel(scene: Scene, camera: camera_ops.Camera, row0: int, rows:
                               bounces=bounces, shadow_iters=shadow_iters)
 
 
+def _pipeline_grad_frame(scene: Scene, camera: camera_ops.Camera, polish_iters: int, bounces,
+                         shadow_iters) -> torch.Tensor:
+    """The differentiable frame of a scene the fused backward cannot encode
+    (``PipelineGradRender``). On the card, outside ``graphs.eager()``, its
+    forward (the packing and one K1 launch) and its backward (the pipeline's
+    recompute and its autograd) replay two graphs of the frame's key, the
+    backward's captured into the forward's pool (``_GradFrame``); the image
+    and the gradients are fresh tensors."""
+    host = _host_half(scene, polish_iters, bounces, shadow_iters)
+    device = scene.coefs.device
+    if not graphs.active(device):
+        return PipelineGradRender.apply(scene, host, *_grad_tensors(scene, camera))
+    key = ("pipeline_grad", _frame_key(scene, camera, 0, scene.height, polish_iters,
+                                       host["bounces"], host["shadow_iters"], True))
+
+    def body(*tensors):
+        return PipelineGradRender.apply(
+            dataclasses.replace(scene, light_is_spherical=tensors[-1]), host, *tensors[:-1])
+
+    return _replay_frame(key, device, body, _frame_tensors(scene, camera), True)
+
+
 def render_image_kernel(scene: Scene, camera: camera_ops.Camera | None = None,
                         polish_iters: int = 3, bounces: int | None = None,
                         shadow_iters: int | None = None) -> torch.Tensor:
     """Render a full frame -> [H, W, 3] f32 on the scene's device, row 0 at
     the bottom: the counterpart of ``render_image_pallas``.
 
-    Differentiable: with the fused backward (``PackedRender``, replayed as
-    CUDA graphs on the card, ``render_rows_kernel``) where it encodes the
-    scene, else through ``PipelineGradRender``, whose backward recomputes
-    the frame through the plain pipeline and which stays eager.
+    Differentiable: with the fused backward (``PackedRender``,
+    ``render_rows_kernel``) where it encodes the scene, else through
+    ``PipelineGradRender``, whose backward recomputes the frame through the
+    plain pipeline. On the card both replay CUDA graphs, a forward graph and
+    a backward graph for each key.
 
     ``camera`` defaults to the reference pose. ``shadow_iters`` sets the
     Newton steps of the shadow-occlusion solves, clamped to
@@ -558,8 +594,7 @@ def render_image_kernel(scene: Scene, camera: camera_ops.Camera | None = None,
     if camera is None:
         camera = camera_ops.Camera.initial(torch.float32, scene.coefs.device)
     if _wants_grad(scene, camera) and not _fused_backward_encodes(scene):
-        kwargs = dict(polish_iters=polish_iters, bounces=bounces, shadow_iters=shadow_iters)
-        return PipelineGradRender.apply(scene, kwargs, *_grad_tensors(scene, camera))
+        return _pipeline_grad_frame(scene, camera, polish_iters, bounces, shadow_iters)
     return render_rows_kernel(scene, camera, 0, scene.height,
                               polish_iters=polish_iters, bounces=bounces,
                               shadow_iters=shadow_iters)

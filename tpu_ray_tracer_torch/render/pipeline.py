@@ -25,6 +25,12 @@ and the occlusion solve runs on detached tensors, so the backward pass skips
 it entirely. Eager torch materialises every intermediate that XLA would
 fuse: ``RenderConfig.chunk_px`` bounds them by rendering the frame in
 sequential chunks of rays (a shadow solve is [rays, lights, objects]).
+
+On the card a frame without a recorded gradient replays a CUDA graph of
+``_render_image`` (``render/graphs.py``), the counterpart of the JAX
+package's ``_render_image_jit``: its key is the config and the tables'
+shapes, dtypes and devices, and a frame whose warm-up holds more than
+``graphs.MAX_GRAPH_BYTES`` (20spheres 800x600 in one shot) stays eager.
 """
 
 from __future__ import annotations
@@ -34,12 +40,13 @@ from typing import NamedTuple
 
 import torch
 
-from ..models.scene import Scene, static_bounce_count
+from ..models.scene import _TENSOR_FIELDS, Scene, static_bounce_count
 from ..ops import camera as camera_ops
 from ..ops.constants import EPS, MAX_T, SHADOW_BIAS
 from ..ops.intersect import intersect_all, occluder_mask, valid_hit_mask
 from ..ops.poly import normal_vector
 from ..ops.shading import reflect_ray, shadow_ray_dirs, surface_color
+from . import graphs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -212,6 +219,23 @@ def _render_image(scene: Scene, camera: camera_ops.Camera, config: RenderConfig)
     return colors.reshape(height, width, 3)
 
 
+def _frame_tensors(scene: Scene, camera: camera_ops.Camera) -> list:
+    """Every tensor a frame reads: the scene's tables, then the camera's."""
+    return ([getattr(scene, f) for f in _TENSOR_FIELDS]
+            + [camera.position, camera.yaw_deg, camera.pitch_deg])
+
+
+def _with_frame_tensors(scene: Scene, tensors) -> tuple:
+    """(scene, camera) made of ``_frame_tensors``' list."""
+    n = len(_TENSOR_FIELDS)
+    return (dataclasses.replace(scene, **dict(zip(_TENSOR_FIELDS, tensors[:n]))),
+            camera_ops.Camera(*tensors[n:]))
+
+
+# The pipeline frames' graphs, by key.
+_FRAMES = graphs.GraphCache()
+
+
 def render_image(scene: Scene, camera: camera_ops.Camera | None = None,
                  config: RenderConfig = FAST_CONFIG):
     """Render the full frame -> [H, W, 3] f32 on the scene's device, row 0 =
@@ -220,10 +244,31 @@ def render_image(scene: Scene, camera: camera_ops.Camera | None = None,
 
     The analogue of one reference ``update()`` call (src/update-cpu.cpp:121-139),
     minus the GL upload: the framebuffer is returned as a tensor.
+
+    On CUDA tables, when autograd records nothing (grad mode off, or no
+    table requiring grad), the frame replays the CUDA graph of its key, as
+    the JAX entry launches the executable of ``_render_image_jit``: the
+    config (dtype, polish, bounces, ``chunk_px``), the image's size and the
+    tables' shapes, dtypes and devices. The key's first call runs eagerly,
+    its second captures, and the frame returned is a fresh tensor. A frame
+    with a gradient, on CPU tables, inside ``graphs.eager()`` or whose
+    warm-up held more than ``graphs.MAX_GRAPH_BYTES`` runs eagerly.
     """
+    device = scene.coefs.device
     if camera is None:
-        camera = camera_ops.Camera.initial(config.dtype, scene.coefs.device)
+        camera = camera_ops.Camera.initial(config.dtype, device)
     if config.bounces is None:
         # Specialize the reflection trip count on the concrete scene (host-side).
         config = dataclasses.replace(config, bounces=resolve_bounces(scene, config))
-    return _render_image(scene, camera, config)
+    tensors = _frame_tensors(scene, camera)
+    if (not graphs.active(device) or any(t.device != device for t in tensors)
+            or (torch.is_grad_enabled() and any(t.requires_grad for t in tensors))):
+        return _render_image(scene, camera, config)
+    key = (config, scene.width, scene.height,
+           tuple((tuple(t.shape), t.dtype, t.device) for t in tensors))
+
+    def body(*inputs):
+        return _render_image(*_with_frame_tensors(scene, inputs), config)
+
+    return _FRAMES.run(key, device, lambda: graphs.Graph(device, body, tensors),
+                       lambda: body(*tensors), tensors)
