@@ -8,13 +8,15 @@ result line):
 
 1. device: require CUDA; print the card's name and power limit, torch,
    CUDA and nvcc versions;
-2. build: compile every kernel of the path from csrc/, one nvcc per source,
-   all started together (timed as set-up);
+2. build: compile every kernel of the path from csrc/ (render_fwd.cu,
+   render_bwd.cu, pack.cu), one nvcc per source, all started together
+   (timed as set-up);
 3. main path: load scenes/dingdong.yml (onto the card, the loader's
    default) and render it at 1280x720 from the reference pose through
    ``render_image_kernel``, with every launch count set to 0 just before and
-   read just after (the forward's main instantiation must have run); check
-   the frame;
+   read just after (the forward's main instantiation must have run, and one
+   pack_frame launch with each render_fwd launch, on this path and on every
+   later one); check the frame;
 4. parity: all 8 bundled scenes at full size through ``render_image_kernel``
    against bench_goldens/<scene>.npz, each within its gate
    (tpu_ray_tracer_torch.parity.PARITY_GATES, the JAX bench's gates);
@@ -23,6 +25,22 @@ result line):
    and dingdong with polish 2 (the generic instantiation; the others run the
    main ones, reflection_test the one with a chain), at most 1e-3 of the
    pixels differing by more than 2/255 per frame;
+5b. the packing kernels against their plain versions on the card:
+   ``pack_tables`` against ``pack_tables_plain`` on all 8 scenes at 3 poses
+   (f32 cameras; f64 at one) and row0 0 and half the height (the second of
+   two row-sharded ranks): every table bit for bit, or each differing entry
+   listed with its ulps (every table, the camera rows too, must be bit
+   for bit); ``pack_vjp`` against
+   ``pack_vjp_plain`` on a seeded gradient vector on all 8 scenes (the
+   table gradients bit for bit, the angles within PACK_VJP_RTOL); each
+   kernel timed alone (device-only, PACK_TIMED_CALLS launches) against its
+   plain version, beside its bound (``render/bounds.py`` ``pack_work``,
+   ``vjp_work``); then the step-1 profile of a graphed dingdong frame
+   (``tpu_ray_tracer_torch.frame_profile.profile_ops``: device ops and
+   device time a frame of the bench's forward and fwd+bwd sweeps, against
+   the parent's PARENT_FRAME_OPS); the frames and the fit step that the
+   packing speeds up are timed by 9e (the graphed calls and fit step) and
+   11 (the bench's dingdong stages);
 6. timing: CUDA events over 32 frames of dingdong 1280x720 at yaws
    90 + 1e-3 k after warm-up (the kernel alone as device time of its
    launches run back to back, proven by ``timed_ms``'s gate; the whole call
@@ -37,7 +55,8 @@ result line):
    ``render_image_kernel`` with every differentiable scene and camera
    tensor requiring grad, then ``loss.backward()``, the counts set to 0
    just before and read just after: one render_fwd and one render_bwd
-   launch, every gradient finite and nonzero (reflection excepted: no
+   launch, one pack_frame and one pack_vjp, every gradient finite and
+   nonzero (reflection excepted: no
    dingdong object reflects, so the chain is not traced);
 7b. the backward kernel against ``render_bwd_plain`` on the same aux (the
    kernel forward's), dingdong, reflection_test and 20spheres at full size,
@@ -174,12 +193,16 @@ result line):
    its stage list implies (``bench_launches``); the headline and the
    dingdong figures are printed.
 
+Every exact launch check of phases 3-11 counts the packing kernels too:
+one pack_frame with each render_fwd, one pack_vjp with each render_bwd of
+a frame's backward (the bench's kernel readings call render_bwd alone).
+
 The last lines are the card's name and power limit, a {"kernels": [...]}
 line (each kernel's launches on the main paths, 9e's, 9f's, the sharded ones of
 10a and of both ranks of 10b and the bench's of 11 included, its time, its plain
 version's, its bound and share of the bound on dingdong 1280x720; no single
-PyTorch call computes either function, so ``library_ms`` is null), and
-{"ok": true, "device": {...}}.
+PyTorch call computes any of the four functions, so ``library_ms`` is null),
+and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -209,7 +232,13 @@ GATE_FRAMES = 256      # 6: the long sweep of the device-only reading's check
 GATE_RTOL = 0.02       # 6: each of its four readings against the quiet 32-frame one
 K2_LONG_SWEEP = 128    # 7e: the bench's sweep at TRT_BENCH_FRAMES=128
 PLAIN_FRAMES = 3
-KERNELS = ("render_fwd", "render_bwd")
+KERNELS = ("render_fwd", "render_bwd", "pack")
+PACK_VJP_RTOL = 1e-5   # 5b: d yaw, d pitch, kernel against plain, relative
+PACK_TIMED_CALLS = 256  # 5b: each packing kernel timed alone
+# 5b: device ops a frame of the bench's dingdong sweep graphs on the parent
+# (19626a1), PERF.md's step-1 profile (frame_profile, NVIDIA H100 80GB HBM3,
+# 700.00 W)
+PARENT_FRAME_OPS = {"forward": 72.03, "fwd+bwd": 88.00}
 FIT_STEPS = 5          # 9a: the CLI's fit on dingdong; 10a-10c: the sharded fit
 FIT_TIMED_STEPS = 8    # 9a: the train step timed alone
 PROFILED_STEPS = 5     # 10a: the world-1 step under torch.profiler, with and without the group
@@ -272,11 +301,172 @@ def bench_launches(frames: int) -> dict:
     monkey_saddle, reflection_test, 20spheres) launches render_fwd with aux
     and render_bwd once each for the sweep's frames three times, and once
     more for the kernel reading (render_fwd for its aux, render_bwd
-    timed)."""
+    timed).
+    Every render_fwd launch comes with a pack_frame launch (the kernel
+    readings' tables come from ``pack_frame``), and each of the sweeps'
+    backwards with a pack_vjp launch (3 a frame of a forward+backward
+    sweep; the kernel reading runs render_bwd alone)."""
     fwd, fwdbwd = 4 * frames + 3, 4 * frames
     return {"render_fwd": 8 * fwd + 4 * fwdbwd, "render_fwd.save_aux": 4 * fwdbwd,
             "render_bwd": 4 * fwdbwd, "render_fwd.main": 7 * fwd + 3 * fwdbwd,
-            "render_fwd.main_chain": fwd + fwdbwd, "render_fwd.generic": 0}
+            "render_fwd.main_chain": fwd + fwdbwd, "render_fwd.generic": 0,
+            "pack_frame": 8 * fwd + 4 * fwdbwd, "pack_vjp": 4 * 3 * frames}
+
+
+def _ordered_bits(t):
+    """f32 values as integers that differ by their distance in ulps."""
+    import torch
+
+    i = t.contiguous().view(torch.int32).to(torch.int64)
+    return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+
+def pack_phase(scenes: dict, camera, dev, smi: str) -> dict:
+    """Phase 5b (see the module's docstring); returns the packing kernels'
+    worst differences against their plain versions, their times, their
+    plain versions' and their bounds on dingdong 1280x720."""
+    import numpy as np
+    import torch
+
+    from tpu_ray_tracer_torch import frame_profile
+    from tpu_ray_tracer_torch.kernel_bench import timed_ms
+    from tpu_ray_tracer_torch.render import bounds
+    from tpu_ray_tracer_torch.render.bwd_kernel import acc_layout
+    from tpu_ray_tracer_torch.render.kernel_backend import _host_half
+    from tpu_ray_tracer_torch.render.pack_kernel import (GRAD_FIELDS, pack_tables,
+                                                         pack_tables_plain, pack_vjp,
+                                                         pack_vjp_plain)
+
+    tables = ("coefs", "orig_index", "colors", "refl", "lights", "dir_table", "posdef", "cam")
+    poses = {"reference": ((0.0, 0.0, 0.0), 90.0, 0.0), "yaw 91 pitch 2": ((0.0, 0.0, 0.0),
+                                                                           91.0, 2.0),
+             "off": OFF_POSE}
+    worst_ulps = dict.fromkeys(tables, 0)
+    listed, cases, worst_abs = [], 0, 0.0
+    for name, scene in scenes.items():
+        host = _host_half(scene, 3, None, None)
+        for label, pose in poses.items():
+            cams = [("f32", camera(*pose))]
+            if label == "off":
+                cams.append(("f64", _camera_f64(camera(*pose))))
+            for dtype, cam in cams:
+                for row0 in (0, scene.height // 2):
+                    got = pack_tables(scene, cam, host["slots"], n_cubic=host["n_cubic"],
+                                      row0=row0)
+                    want = pack_tables_plain(scene, cam, host["slots"],
+                                             n_cubic=host["n_cubic"], row0=row0)
+                    cases += 1
+                    for key, g, w in zip(tables, got, want):
+                        if g.dtype != w.dtype or g.shape != w.shape:
+                            raise RuntimeError(f"pack {name} {key}: {g.dtype} {tuple(g.shape)} "
+                                               f"against {w.dtype} {tuple(w.shape)}")
+                        if g.dtype == torch.int32:
+                            differ = g != w
+                            ulps = (g.long() - w.long()).abs()
+                        else:
+                            differ = g.view(torch.int32) != w.view(torch.int32)
+                            ulps = (_ordered_bits(g) - _ordered_bits(w)).abs()
+                            if g.numel():
+                                worst_abs = max(worst_abs, float((g - w).abs().max()))
+                        if bool(differ.any()):
+                            at = differ.nonzero().tolist()
+                            listed.append(f"{name} {label} {dtype} row0 {row0} {key}: "
+                                          + ", ".join(f"{tuple(i)} {int(ulps[tuple(i)])} ulps"
+                                                      for i in at))
+                            worst_ulps[key] = max(worst_ulps[key], int(ulps.max()))
+    for line in listed:
+        log(f"[pack] differs: {line}")
+    log(f"[pack] pack_frame against pack_tables_plain: {cases} cases (8 scenes, 3 poses, f64 "
+        f"at one, row0 0 and height / 2), worst ulps by table {worst_ulps}")
+    differing = [k for k in tables if worst_ulps[k]]
+    if differing:
+        raise RuntimeError(f"pack_frame differs from its plain version: tables {differing} (must "
+                           f"be bit for bit)")
+
+    rng = np.random.default_rng(15)
+    vjp_worst = {"table_abs": 0.0, "angle_rel": 0.0, "angle_abs": 0.0}
+    for name, scene in scenes.items():
+        gather = _host_half(scene, 3, None, None)["slots"][0]
+        cam = camera((0.5, -1.0, 2.0), 91.0, 2.0)
+        n = acc_layout(scene.n_objects, scene.n_lights)[-1]
+        vec = torch.tensor(rng.standard_normal(n).astype(np.float32), device=dev)
+        got = pack_vjp(vec, gather, scene, cam)
+        want = pack_vjp_plain(vec, gather, scene, cam)
+        for field, g, w in zip(GRAD_FIELDS, got, want):
+            if g.dtype != w.dtype or g.shape != w.shape or not torch.isfinite(g).all():
+                raise RuntimeError(f"pack_vjp {name} {field}: {g.dtype} {tuple(g.shape)}, "
+                                   f"finite {bool(torch.isfinite(g).all())}")
+            err = float((g - w).abs().max())
+            if field in ("yaw_deg", "pitch_deg"):
+                rel = err / max(float(w.abs()), 1e-30)
+                vjp_worst["angle_rel"] = max(vjp_worst["angle_rel"], rel)
+                vjp_worst["angle_abs"] = max(vjp_worst["angle_abs"], err)
+                if rel > PACK_VJP_RTOL:
+                    raise RuntimeError(f"pack_vjp {name} {field}: relerr {rel} > {PACK_VJP_RTOL}")
+            else:
+                vjp_worst["table_abs"] = max(vjp_worst["table_abs"], err)
+                if not torch.equal(g, w):
+                    raise RuntimeError(f"pack_vjp {name} {field}: differs from the plain version")
+    log(f"[pack] pack_vjp against pack_vjp_plain, 8 scenes, a seeded gradient vector: table "
+        f"gradients bit for bit, yaw and pitch relerr {vjp_worst['angle_rel']:.3e} (limit "
+        f"{PACK_VJP_RTOL:g})")
+
+    # each kernel alone against its plain version, beside its bound
+    ding = scenes["dingdong"]
+    host = _host_half(ding, 3, None, None)
+    cam = camera()
+    gather = host["slots"][0]
+    vec = torch.tensor(rng.standard_normal(acc_layout(ding.n_objects, ding.n_lights)[-1])
+                       .astype(np.float32), device=dev)
+    calls = {
+        "pack_frame": (lambda k: pack_tables(ding, cam, host["slots"], n_cubic=host["n_cubic"],
+                                             row0=0),
+                       lambda k: pack_tables_plain(ding, cam, host["slots"],
+                                                   n_cubic=host["n_cubic"], row0=0),
+                       bounds.pack_work(ding, cam)),
+        "pack_vjp": (lambda k: pack_vjp(vec, gather, ding, cam),
+                     lambda k: pack_vjp_plain(vec, gather, ding, cam),
+                     bounds.vjp_work(ding, cam)),
+    }
+    out = {}
+    for name, (kernel, plain, work) in calls.items():
+        kernel(0)
+        plain(0)
+        ms = timed_ms(kernel, PACK_TIMED_CALLS, device_only=True)
+        plain_ms = timed_ms(plain, PACK_TIMED_CALLS)
+        bound, by = bounds.bound_ms(work["ops"], work["bytes"])
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                     "ops": work["ops"], "bytes": work["bytes"]}
+        log(f"[pack] {name} dingdong: kernel {ms * 1e3:.3f} us a launch (device-only, "
+            f"{PACK_TIMED_CALLS} launches), plain version {plain_ms * 1e3:.3f} us a call (CUDA "
+            f"events with the host's gaps); bound {bound * 1e6:.3f} ns ({by}: {work['bytes']} "
+            f"bytes, {work['ops']} operations), share {bound / ms:.2e} ({smi})")
+    out["max_abs_err"] = {"pack_frame": worst_abs,
+                          "pack_vjp": max(vjp_worst["table_abs"], vjp_worst["angle_abs"])}
+    out["worst_ulps"] = worst_ulps
+    out["vjp_angle_rel"] = vjp_worst["angle_rel"]
+
+    # the step-1 profile on this tree: device ops a frame of the bench's
+    # graphed dingdong sweeps, against the parent's
+    ops = frame_profile.profile_ops(dev, ding)
+    for what, r in ops.items():
+        log(f"[frame-profile] graphed {what} sweep, dingdong 1280x720: {r['ops_a_frame']:.2f} "
+            f"device ops a frame (parent {PARENT_FRAME_OPS[what]:.2f}), "
+            f"{r['device_ms_a_frame']:.4f} ms of device time a frame: "
+            + "; ".join(f"{o['count']:g} x {o['name'][:60]} {o['us']:.2f} us" for o in r["by_name"])
+            + f" ({smi})")
+    if not ops["forward"]["ops_a_frame"] < PARENT_FRAME_OPS["forward"] / 4:
+        raise RuntimeError(f"graphed forward frame: {ops['forward']['ops_a_frame']} device ops a "
+                           f"frame, the parent's {PARENT_FRAME_OPS['forward']}")
+    out["frame_ops"] = {k: v["ops_a_frame"] for k, v in ops.items()}
+    return out
+
+
+def _camera_f64(cam):
+    """``cam`` with f64 tensors."""
+    import torch
+
+    return type(cam)(*(t.to(torch.float64) for t in (cam.position, cam.yaw_deg, cam.pitch_deg)))
 
 
 def main() -> int:
@@ -298,6 +488,7 @@ def main() -> int:
     from tpu_ray_tracer_torch.render.bwd_kernel import render_bwd, render_bwd_plain
     from tpu_ray_tracer_torch.render.fwd_kernel import render_fwd, render_fwd_plain
     from tpu_ray_tracer_torch.render.kernel_backend import pack_frame
+    from tpu_ray_tracer_torch.render.pack_kernel import pack_tables, pack_vjp
 
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
@@ -335,6 +526,7 @@ def main() -> int:
     # --- 3. main path: dingdong 1280x720, reference pose ---
     def zero_counts():
         render_fwd.launches = render_fwd.launches_save_aux = render_bwd.launches = 0
+        pack_tables.launches = pack_vjp.launches = 0
         for counts in (render_fwd.launches_by_variant, render_bwd.launches_by_placement):
             for key in counts:
                 counts[key] = 0
@@ -347,15 +539,19 @@ def main() -> int:
     torch.cuda.synchronize()
     main_launches = render_fwd.launches
     main_variants = {k: v for k, v in render_fwd.launches_by_variant.items() if v}
+    main_pack = (pack_tables.launches, pack_vjp.launches)
     if main_launches < 1 or main_variants != {"main": main_launches}:
         raise RuntimeError(f"main path: render_fwd launches {main_launches}, by "
                            f"instantiation {main_variants}; expected the main one")
+    if main_pack != (main_launches, 0):
+        raise RuntimeError(f"main path: (pack_frame, pack_vjp) launches {main_pack}, expected "
+                           f"({main_launches}, 0)")
     image = image.cpu().numpy()
     if image.shape != (720, 1280, 3) or not np.isfinite(image).all():
         raise RuntimeError(f"main path: bad frame shape {image.shape} or non-finite values")
     frac = bad_pixel_fraction(image, golden("dingdong"))
     log(f"[main] dingdong 1280x720 via render_image_kernel: launches={main_launches} "
-        f"{main_variants} "
+        f"{main_variants}, pack_frame {main_pack[0]} "
         f"bad-px vs golden {frac:.6f} (gate {PARITY_GATES['dingdong']})")
     if frac > PARITY_GATES["dingdong"]:
         raise RuntimeError("main path: dingdong over its parity gate")
@@ -364,11 +560,12 @@ def main() -> int:
     scenes = {name: load(name) for name in SCENES}
     parity = {}
     for name, scene in scenes.items():
-        before = render_fwd.launches
+        before = (render_fwd.launches, pack_tables.launches)
         img = ttt.render_image_kernel(scene).cpu().numpy()
-        if render_fwd.launches != before + 1:
-            raise RuntimeError(f"parity {name}: expected one kernel launch, "
-                               f"counted {render_fwd.launches - before}")
+        launched = (render_fwd.launches - before[0], pack_tables.launches - before[1])
+        if launched != (1, 1):
+            raise RuntimeError(f"parity {name}: expected one render_fwd and one pack_frame "
+                               f"launch, counted {launched}")
         parity[name] = bad_pixel_fraction(img, golden(name))
         log(f"[parity] {name} {scene.width}x{scene.height}: bad-px {parity[name]:.6f} "
             f"(gate {PARITY_GATES[name]})")
@@ -395,6 +592,9 @@ def main() -> int:
     log(f"[vs-plain] launches by instantiation {render_fwd.launches_by_variant}")
     if not all(render_fwd.launches_by_variant.values()):
         raise RuntimeError("kernel vs plain: an instantiation of render_fwd never ran")
+
+    # --- 5b. the packing kernels against their plain versions ---
+    pack = pack_phase(scenes, camera, dev, smi)
 
     # --- 6. timing (dingdong 1280x720, the JAX bench's yaw sweep) ---
     n_px = ding.width * ding.height
@@ -460,11 +660,12 @@ def main() -> int:
     zero_counts()
     (w * ttt.render_image_kernel(g_scene, g_cam)).sum().backward()
     torch.cuda.synchronize()
-    grad_launches = {"render_fwd": render_fwd.launches, "render_bwd": render_bwd.launches}
+    grad_launches = {"render_fwd": render_fwd.launches, "render_bwd": render_bwd.launches,
+                     "pack_frame": pack_tables.launches, "pack_vjp": pack_vjp.launches}
     grad_detail = {k: v for k, v in {**render_fwd.launches_by_variant,
                                      **render_bwd.launches_by_placement}.items() if v}
     log(f"[grad] dingdong 1280x720 loss.backward(): launches {grad_launches} {grad_detail}")
-    if grad_launches != {"render_fwd": 1, "render_bwd": 1}:
+    if grad_launches != {"render_fwd": 1, "render_bwd": 1, "pack_frame": 1, "pack_vjp": 1}:
         raise RuntimeError(f"grad path: expected one launch of each kernel, got {grad_launches}")
     for name, leaf in leaves.items():
         gmax = float(leaf.grad.abs().max())
@@ -657,7 +858,8 @@ def main() -> int:
     torch.cuda.synchronize()
     cli_launches = render_fwd.launches
     cli_variants = {k: v for k, v in render_fwd.launches_by_variant.items() if v}
-    if rc != 0 or cli_launches != 1 or cli_variants != {"main": 1}:
+    cli_pack = pack_tables.launches
+    if rc != 0 or cli_launches != 1 or cli_variants != {"main": 1} or cli_pack != 1:
         raise RuntimeError(f"cli render: rc {rc}, render_fwd launches {cli_variants}; "
                            "expected one of the main instantiation")
     frac = bad_pixel_fraction(np.load(cli_npy), golden("dingdong"))
@@ -667,6 +869,7 @@ def main() -> int:
         raise RuntimeError("cli render: dingdong over its parity gate")
     buf = io.StringIO()
     before = render_fwd.launches
+    before_pack = pack_tables.launches
     with contextlib.redirect_stdout(buf):
         rc = cli.main(["bench", ding_yml, "--frames", str(TIMED_FRAMES)])
     torch.cuda.synchronize()
@@ -675,7 +878,8 @@ def main() -> int:
     fps = re.search(r"^FPS: \d+\.\d{4}, last render time: (\d+\.\d{4}) ms$", buf.getvalue(),
                     re.M)
     if (rc != 0 or fps is None or "backend kernel" not in buf.getvalue()
-            or render_fwd.launches - before != TIMED_FRAMES + 1):
+            or render_fwd.launches - before != TIMED_FRAMES + 1
+            or pack_tables.launches - before_pack != TIMED_FRAMES + 1):
         raise RuntimeError(f"cli bench: rc {rc}, {render_fwd.launches - before} launches, "
                            "expected the kernel backend's FPS line")
     log(f"[cli] bench: {render_fwd.launches - before} render_fwd launches (1 warm-up + "
@@ -745,13 +949,16 @@ def main() -> int:
         zero_counts()
         got = fallback_grads(scene, fields)
         torch.cuda.synchronize()
-        launches = {"render_fwd": render_fwd.launches, "render_bwd": render_bwd.launches}
+        launches = {"render_fwd": render_fwd.launches, "render_bwd": render_bwd.launches,
+                    "pack_frame": pack_tables.launches, "pack_vjp": pack_vjp.launches}
         variants = {k: v for k, v in render_fwd.launches_by_variant.items() if v}
         fallback_launches += render_fwd.launches
         ref = fallback_grads(scene, fields, fallback=False)
         log(f"[fallback] {label} 640x480 loss.backward(): launches {launches} {variants}")
-        if launches != {"render_fwd": 1, "render_bwd": 0} or variants != {"main": 1}:
-            raise RuntimeError(f"fallback {label}: expected one render_fwd (main), no render_bwd")
+        if launches != {"render_fwd": 1, "render_bwd": 0, "pack_frame": 1,
+                        "pack_vjp": 0} or variants != {"main": 1}:
+            raise RuntimeError(f"fallback {label}: expected one render_fwd (main) and one "
+                               f"pack_frame, no render_bwd or pack_vjp; got {launches}")
         for f in fields:
             g, r = got[f], ref[f]
             rtol = 1e-4 if f == "coefs" else 1e-5
@@ -881,7 +1088,8 @@ def main() -> int:
     torch.cuda.synchronize()
     fit_launches = {"render_fwd": render_fwd.launches,
                     "render_fwd_save_aux": render_fwd.launches_save_aux,
-                    "render_bwd": render_bwd.launches}
+                    "render_bwd": render_bwd.launches, "pack_frame": pack_tables.launches,
+                    "pack_vjp": pack_vjp.launches}
     fit_detail = {k: v for k, v in {**render_fwd.launches_by_variant,
                                     **render_bwd.launches_by_placement}.items() if v}
     for line in buf.getvalue().splitlines():
@@ -893,7 +1101,8 @@ def main() -> int:
     if rc != 0 or summary is None or int(summary[3]) != FIT_STEPS:
         raise RuntimeError(f"fit: rc {rc}, no summary line for {FIT_STEPS} steps")
     if fit_launches != {"render_fwd": FIT_STEPS + 1, "render_fwd_save_aux": FIT_STEPS,
-                        "render_bwd": FIT_STEPS}:
+                        "render_bwd": FIT_STEPS, "pack_frame": FIT_STEPS + 1,
+                        "pack_vjp": FIT_STEPS}:
         raise RuntimeError(f"fit: expected {FIT_STEPS} launches of each kernel with aux and "
                            f"one target frame, got {fit_launches}")
     logged += [float(summary[1]), float(summary[2])]
@@ -954,12 +1163,14 @@ def main() -> int:
             raise RuntimeError(f"baseline fit {label}: wrong route")
         zero_counts()
         losses, times, peak = fit_steps(problem, target, steps)
-        launches = (render_fwd.launches_save_aux, render_bwd.launches)
+        launches = (render_fwd.launches_save_aux, render_bwd.launches, pack_tables.launches,
+                    pack_vjp.launches)
         baseline_steps[label] = float(np.median(times))
         log(f"[fit] clebsch 800x600 coefs+light_color, {label} ({loss_fn.block_rows} rows a "
             f"block): losses {losses}, step ms {', '.join(f'{t:.4f}' for t in times)}, peak "
-            f"{peak:.3f} GiB, kernel launches (fwd with aux, bwd) {launches} ({smi})")
-        want = (steps, steps) if backend == "kernel" else (0, 0)
+            f"{peak:.3f} GiB, kernel launches (fwd with aux, bwd, pack_frame, pack_vjp) "
+            f"{launches} ({smi})")
+        want = (steps,) * 4 if backend == "kernel" else (0,) * 4
         if launches != want or not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
             raise RuntimeError(f"baseline fit {label}: launches {launches} (want {want}) or the "
                                f"loss did not fall: {losses}")
@@ -1043,16 +1254,17 @@ def main() -> int:
         ttt.render_image_kernel(scene, poses["reference"])
         captured = frames_cache.captures
         for label, cam in poses.items():
-            before = render_fwd.launches
+            before = (render_fwd.launches, pack_tables.launches)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             got = ttt.render_image_kernel(scene, cam)
             torch.cuda.synchronize()
             if label == "reference" and not shared:  # the call that captured
                 capture_calls[name] = time.perf_counter() - t0
-            if render_fwd.launches != before + 1:
-                raise RuntimeError(f"graphs {name} {label}: {render_fwd.launches - before} "
-                                   "launches for one frame")
+            launched = (render_fwd.launches - before[0], pack_tables.launches - before[1])
+            if launched != (1, 1):
+                raise RuntimeError(f"graphs {name} {label}: (render_fwd, pack_frame) launches "
+                                   f"{launched} for one frame")
             if not torch.equal(got, eager_frame(scene, cam)):
                 raise RuntimeError(f"graphs {name} {label}: the graphed frame differs from the "
                                    "eager one")
@@ -1091,12 +1303,14 @@ def main() -> int:
         captured = frames_cache.captures
         for k in range(3):  # warm-up, capture and replay, replay
             cam = camera(yaw=90.0 + 0.5 * k, pitch=5.0)
-            before = (render_fwd.launches, render_bwd.launches)
+            before = (render_fwd.launches, render_bwd.launches, pack_tables.launches,
+                      pack_vjp.launches)
             got = frame_grads_of(scene, cam, ramp)
-            launched = (render_fwd.launches - before[0], render_bwd.launches - before[1])
+            launched = (render_fwd.launches - before[0], render_bwd.launches - before[1],
+                        pack_tables.launches - before[2], pack_vjp.launches - before[3])
             want = frame_grads_of(scene, cam, ramp, eager=True)
             differ = [n for n in want if not torch.equal(got[n], want[n])]
-            if differ or launched != (1, 1):
+            if differ or launched != (1, 1, 1, 1):
                 raise RuntimeError(f"graphs grad {name} call {k}: groups {differ} differ from "
                                    f"the eager ones, launches {launched}")
         if frames_cache.captures != captured + 1:
@@ -1135,17 +1349,20 @@ def main() -> int:
                                    ("clebsch 800x600 coefs+light_color", baseline_problem,
                                     baseline_target)):
         eager_losses, eager_params, _, eager_ms = fit_run(problem, target, eager=True)
-        before = (render_fwd.launches_save_aux, render_bwd.launches)
+        before = (render_fwd.launches_save_aux, render_bwd.launches, pack_tables.launches,
+                  pack_vjp.launches)
         losses, params, step, graphed_ms = fit_run(problem, target, eager=False)
-        launched = (render_fwd.launches_save_aux - before[0], render_bwd.launches - before[1])
+        launched = (render_fwd.launches_save_aux - before[0], render_bwd.launches - before[1],
+                    pack_tables.launches - before[2], pack_vjp.launches - before[3])
         differ = [k for k in params if not torch.equal(params[k], eager_params[k])]
         step_graphs = graph_fits[label] = step.graphs
         log(f"[graphs] fit {label}: {FIT_STEPS} graphed steps, losses {losses}, "
             f"{step_graphs.captures} captures ({', '.join(f'{t * 1e3:.1f}' for t in step_graphs.capture_s)} ms), "
-            f"launches (fwd with aux, bwd) {launched}; eager losses {eager_losses}; host ms a "
+            f"launches (fwd with aux, bwd, pack_frame, pack_vjp) {launched}; eager losses "
+            f"{eager_losses}; host ms a "
             f"step, graphed {', '.join(f'{t:.3f}' for t in graphed_ms)}, eager "
             f"{', '.join(f'{t:.3f}' for t in eager_ms)} ({smi})")
-        if losses != eager_losses or differ or launched != (FIT_STEPS, FIT_STEPS):
+        if losses != eager_losses or differ or launched != (FIT_STEPS,) * 4:
             raise RuntimeError(f"graphs fit {label}: graphed steps differ from the eager ones "
                                f"(params {differ}) or launched {launched}")
         # the same train step with new parameters and a new optimizer: its
@@ -1167,8 +1384,11 @@ def main() -> int:
         "4 eager steps bit for bit")
     graph_launches = {"render_fwd": render_fwd.launches,
                       "render_fwd_save_aux": render_fwd.launches_save_aux,
-                      "render_bwd": render_bwd.launches}
+                      "render_bwd": render_bwd.launches, "pack_frame": pack_tables.launches,
+                      "pack_vjp": pack_vjp.launches}
     log(f"[graphs] launches in (a)-(d), graphed and eager: {graph_launches}")
+    if graph_launches["pack_frame"] != graph_launches["render_fwd"]:
+        raise RuntimeError(f"graphs: pack_frame and render_fwd launches differ: {graph_launches}")
 
     # (e) times by CUDA events, eager and graphed in turns, the host quiet
     # and busy; the captures' cost and the launches each replay adds
@@ -1297,7 +1517,8 @@ def main() -> int:
     # --- 9f. the pipeline route as replayed CUDA graphs ---
     # (a function of its own: its names must not rebind the earlier phases')
     def pipeline_graphs() -> int:
-        """Phase 9f; returns the render_fwd launches it made."""
+        """Phase 9f; returns the render_fwd launches it made (and as many
+        pack_frame launches, no pack_vjp)."""
         from tpu_ray_tracer_torch import pipeline_profile
 
         t_pipe_graphs = time.perf_counter()
@@ -1323,17 +1544,18 @@ def main() -> int:
                  fit_case(ding, ["light_color"], "torch"), [None] * FIT_STEPS)):
             if inverse.make_loss_fn(problem).use_kernel:
                 raise RuntimeError(f"pipeline graphs fit {label}: not the pipeline route")
-            before = (render_fwd.launches_save_aux, render_bwd.launches)
+            before = (render_fwd.launches_save_aux, render_bwd.launches, pack_vjp.launches)
             want, want_params, _ = pipeline_fit(problem, target, True, taus)
             losses, params, cache = pipeline_fit(problem, target, False, taus)
-            launched = (render_fwd.launches_save_aux - before[0], render_bwd.launches - before[1])
+            launched = (render_fwd.launches_save_aux - before[0], render_bwd.launches - before[1],
+                        pack_vjp.launches - before[2])
             differ = [k for k in params if not torch.equal(params[k], want_params[k])]
             log(f"[pipeline-graphs] fit {label}: {FIT_STEPS} graphed steps, losses {losses}, "
                 f"eager {want}; {cache.captures} captures "
                 f"({', '.join(f'{t * 1e3:.1f}' for t in cache.capture_s)} ms), the graph keeps "
                 f"{cache.bytes() / 2**30:.3f} GiB, {cache.over_bound} calls over the byte bound "
                 f"({smi})")
-            if losses != want or differ or cache.captures != 1 or launched != (0, 0):
+            if losses != want or differ or cache.captures != 1 or launched != (0, 0, 0):
                 raise RuntimeError(f"pipeline graphs fit {label}: the graphed steps differ from "
                                    f"the eager ones (params {differ}), {cache.captures} "
                                    f"captures, kernel launches {launched}")
@@ -1403,13 +1625,15 @@ def main() -> int:
             for k in range(3):  # warm-up, capture and replay, replay
                 cam = camera(yaw=90.0 + 0.5 * k, pitch=3.0)
                 before = (render_fwd.launches, render_bwd.launches,
-                          render_fwd.launches_by_variant["main"])
+                          render_fwd.launches_by_variant["main"], pack_tables.launches,
+                          pack_vjp.launches)
                 leaves = {f: getattr(scene, f).detach().clone().requires_grad_() for f in fields}
                 image = ttt.render_image_kernel(dataclasses.replace(scene, **leaves), cam)
                 image.sum().backward()
                 torch.cuda.synchronize()
                 launched = (render_fwd.launches - before[0], render_bwd.launches - before[1],
-                            render_fwd.launches_by_variant["main"] - before[2])
+                            render_fwd.launches_by_variant["main"] - before[2],
+                            pack_tables.launches - before[3], pack_vjp.launches - before[4])
                 with graphs.eager():
                     want_leaves = {f: getattr(scene, f).detach().clone().requires_grad_()
                                    for f in fields}
@@ -1418,10 +1642,10 @@ def main() -> int:
                     want_image.sum().backward()
                 differ = [f for f in fields if leaves[f].grad is None
                           or not torch.equal(leaves[f].grad, want_leaves[f].grad)]
-                if differ or launched != (1, 0, 1) or not torch.equal(image, want_image):
+                if differ or launched != (1, 0, 1, 1, 0) or not torch.equal(image, want_image):
                     raise RuntimeError(f"pipeline graphs fallback {label} call {k}: gradients "
                                        f"{differ} or the frame differ from eager, launches "
-                                       f"(fwd, bwd, main) {launched}")
+                                       f"(fwd, bwd, main, pack_frame, pack_vjp) {launched}")
             if frames_cache.captures != captured + 1:
                 raise RuntimeError(f"pipeline graphs fallback {label}: "
                                    f"{frames_cache.captures - captured} captures")
@@ -1444,7 +1668,11 @@ def main() -> int:
             cases, ("eager", "graphed"), PIPE_TIMED_CALLS,
             lambda line: log(f"[pipeline-graphs-profile] {line} ({smi})"))
         log("[pipeline-graphs-profile] " + json.dumps(readings))
-        log(f"[pipeline-graphs] render_fwd launches in 9f: {render_fwd.launches}")
+        log(f"[pipeline-graphs] render_fwd launches in 9f: {render_fwd.launches}, pack_frame "
+            f"{pack_tables.launches}, pack_vjp {pack_vjp.launches}")
+        if (pack_tables.launches, pack_vjp.launches) != (render_fwd.launches, 0):
+            raise RuntimeError("pipeline graphs: a render_fwd launch without its pack_frame, or "
+                               "a pack_vjp launch")
         log(f"[pipeline-graphs] phase 9f in {time.perf_counter() - t_pipe_graphs:.1f} s")
         return render_fwd.launches
 
@@ -1480,7 +1708,8 @@ def main() -> int:
     torch.cuda.synchronize()
     sharded_launches = {"render_fwd": render_fwd.launches,
                         "render_fwd_save_aux": render_fwd.launches_save_aux,
-                        "render_bwd": render_bwd.launches}
+                        "render_bwd": render_bwd.launches, "pack_frame": pack_tables.launches,
+                        "pack_vjp": pack_vjp.launches}
     # where the world-1 step's time goes: torch.profiler over the same steps
     # without the group and with it, in turns (none, nccl, nccl, none)
     profiles = {"none": [], "nccl": []}
@@ -1528,7 +1757,8 @@ def main() -> int:
             not torch.equal(sharded_params[k], unsharded_params[k]) for k in sharded_params):
         raise RuntimeError("sharded world 1: the fit differs from the one without a group")
     if sharded_launches != {"render_fwd": FIT_STEPS + 1, "render_fwd_save_aux": FIT_STEPS,
-                            "render_bwd": FIT_STEPS}:
+                            "render_bwd": FIT_STEPS, "pack_frame": FIT_STEPS + 1,
+                            "pack_vjp": FIT_STEPS}:
         raise RuntimeError(f"sharded world 1: launches {sharded_launches}")
 
     # --- 10b. two ranks on the one card (gloo over CUDA tensors) ---
@@ -1560,7 +1790,7 @@ def main() -> int:
         f"light_color relerr {light_err:.3e} (limit {SHARDED_FIT_RTOL:g} each); ranks' "
         f"light_color {'equal' if ranks[0]['light_color'] == ranks[1]['light_color'] else 'DIFFER'}")
     want = {"render_fwd": FIT_STEPS + 2, "render_fwd_save_aux": FIT_STEPS,
-            "render_bwd": FIT_STEPS}
+            "render_bwd": FIT_STEPS, "pack_frame": FIT_STEPS + 2, "pack_vjp": FIT_STEPS}
     if (any(r["launches"] != want for r in ranks) or ranks[0]["ckpt_writes"] != FIT_STEPS
             or ranks[1]["ckpt_writes"] != 0 or ranks[0]["losses"] != ranks[1]["losses"]
             or ranks[0]["light_color"] != ranks[1]["light_color"]
@@ -1644,6 +1874,18 @@ def main() -> int:
     # the sharded paths' launches: 10a in this process, 10b in both ranks
     sharded_fwd = sharded_launches["render_fwd"] + sum(r["launches"]["render_fwd"] for r in ranks)
     sharded_bwd = sharded_launches["render_bwd"] + sum(r["launches"]["render_bwd"] for r in ranks)
+    sharded_pack = {k: sharded_launches[k] + sum(r["launches"][k] for r in ranks)
+                    for k in ("pack_frame", "pack_vjp")}
+    pack_by_path = {"forward": main_pack[0], "gradient": grad_launches["pack_frame"],
+                    "cli": cli_pack, "fallback": fallback_launches,
+                    "fit": fit_launches["pack_frame"], "graphs": graph_launches["pack_frame"],
+                    "pipeline_graphs": pipe_graph_launches, "sharded": sharded_pack["pack_frame"],
+                    "bench": bench_counts["pack_frame"]}
+    vjp_by_path = {"gradient": grad_launches["pack_vjp"], "fit": fit_launches["pack_vjp"],
+                   "graphs": graph_launches["pack_vjp"], "sharded": sharded_pack["pack_vjp"],
+                   "bench": bench_counts["pack_vjp"]}
+    pack_common = {"route": "cuda", "source": "tpu_ray_tracer_torch/csrc/pack.cu",
+                   "library_ms": None, "frame_ops": pack["frame_ops"]}
     print(smi)
     print(json.dumps({"kernels": [{
         "name": "render_fwd",
@@ -1693,6 +1935,31 @@ def main() -> int:
         "ops_per_px": bwd_ops / n_px,
         "fwd_bwd_call_ms": fwd_bwd_ms,
         "fit_step_ms": fit_step_ms,
+    }, {
+        "name": "pack_frame",
+        **pack_common,
+        "replaces": "tpu_ray_tracer/render/pallas_backend.py:1464-1478, :1139 (XLA's fusion of "
+                    "the packing in _render_pallas_jit; not a Pallas kernel)",
+        "launches": sum(pack_by_path.values()),
+        "launches_by_path": pack_by_path,
+        "max_abs_err": pack["max_abs_err"]["pack_frame"],
+        "worst_ulps_vs_plain": pack["worst_ulps"],
+        **{k: pack["pack_frame"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "share_of_bound": pack["pack_frame"]["bound_ms"] / pack["pack_frame"]["ms"],
+        "frame_ms_fwd_dingdong": aux["frame_ms_fwd_dingdong"],
+        "mrays_fwd_dingdong": result["value"],
+    }, {
+        "name": "pack_vjp",
+        **pack_common,
+        "replaces": "tpu_ray_tracer/render/pallas_backend.py:2073-2118 (XLA's fusion of the "
+                    "packing's VJP after _packed_bwd; not a Pallas kernel)",
+        "launches": sum(vjp_by_path.values()),
+        "launches_by_path": vjp_by_path,
+        "max_abs_err": pack["max_abs_err"]["pack_vjp"],
+        "angle_relerr_vs_plain": pack["vjp_angle_rel"],
+        **{k: pack["pack_vjp"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "share_of_bound": pack["pack_vjp"]["bound_ms"] / pack["pack_vjp"]["ms"],
+        "frame_ms_fwd_bwd_dingdong": aux["frame_ms_fwd_bwd_dingdong"],
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -1719,6 +1986,7 @@ def sharded_rank(rank: int, world: int, store: str, out_dir: str) -> int:
     from tpu_ray_tracer_torch.render.bwd_kernel import render_bwd
     from tpu_ray_tracer_torch.render.fwd_kernel import render_fwd, render_fwd_plain
     from tpu_ray_tracer_torch.render.kernel_backend import pack_frame
+    from tpu_ray_tracer_torch.render.pack_kernel import pack_tables, pack_vjp
 
     dev = torch.device("cuda", 0)
     initialize_distributed(backend="gloo", device=dev, init_method=f"file://{store}",
@@ -1740,6 +2008,7 @@ def sharded_rank(rank: int, world: int, store: str, out_dir: str) -> int:
 
     # the main path: the counts set to 0 just before, read just after
     render_fwd.launches = render_fwd.launches_save_aux = render_bwd.launches = 0
+    pack_tables.launches = pack_vjp.launches = 0
     with torch.no_grad():
         frame = render_image_sharded(ding, cam, ttt.RenderConfig(polish_iters=3, chunk_px=None),
                                      group=group)
@@ -1753,7 +2022,8 @@ def sharded_rank(rank: int, world: int, store: str, out_dir: str) -> int:
     torch.cuda.synchronize()
     launches = {"render_fwd": render_fwd.launches,
                 "render_fwd_save_aux": render_fwd.launches_save_aux,
-                "render_bwd": render_bwd.launches}
+                "render_bwd": render_bwd.launches, "pack_frame": pack_tables.launches,
+                "pack_vjp": pack_vjp.launches}
     # each sharded step alone, by CUDA events, with its peak memory
     params_t = inverse.extract_params(problem.scene_template.astype(torch.float32),
                                       problem.param_fields)

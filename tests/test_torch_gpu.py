@@ -33,7 +33,10 @@ from tpu_ray_tracer_torch.render.bwd_kernel import (acc_layout, bwd_plan, render
                                                     render_bwd_plain)
 from tpu_ray_tracer_torch.render.fwd_kernel import (FWD_VARIANTS, _eval_F_and_grad, _powers3,
                                                     fwd_variant, render_fwd, render_fwd_plain)
-from tpu_ray_tracer_torch.render.kernel_backend import pack_frame, render_rows_kernel
+from tpu_ray_tracer_torch.render.kernel_backend import (_host_half, pack_frame, PackedRender,
+                                                        render_rows_kernel)
+from tpu_ray_tracer_torch.render.pack_kernel import (GRAD_FIELDS, pack_tables, pack_tables_plain,
+                                                     pack_vjp, pack_vjp_plain)
 
 pytestmark = pytest.mark.gpu
 
@@ -404,6 +407,112 @@ def test_bwd_ragged_grid(cuda):
     assert (1000 * 37) % (blocks * 64) != 0
     assert placement == "columns"
     _kernel_vs_plain_bwd(args, bkw, "1000x37")
+
+
+# --- the packing kernels ---
+
+PACK_POSES = POSES + [((0.5, -1.0, 2.0), 91.0, 2.0)]
+CAMERA_GRAD_RTOL = 1e-5  # yaw and pitch: the same closed form, the card's sinf/cosf both sides
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32) if t.dtype == torch.float32 else t
+
+
+@pytest.mark.parametrize("name", SCENES)
+def test_pack_tables_match_plain(cuda, name):
+    """The packing kernel's 8 tables bit for bit the plain version's (torch
+    ops on the card), full-size scenes at 3 poses, f32 and f64 cameras, row0
+    0 and half the height (the second of two row-sharded ranks)."""
+    scene = ttt.load_from_file(SCENE_DIR / f"{name}.yml", device=cuda)
+    host = _host_half(scene, 3, None, None)
+    for pose in PACK_POSES:
+        for dtype in (torch.float32, torch.float64):
+            pos, yaw, pitch = pose
+            cam = ttt.Camera(*(torch.tensor(v, dtype=dtype, device=cuda) for v in (pos, yaw, pitch)))
+            for row0 in (0, scene.height // 2):
+                before = pack_tables.launches
+                got = pack_tables(scene, cam, host["slots"], n_cubic=host["n_cubic"], row0=row0)
+                torch.cuda.synchronize()
+                assert pack_tables.launches == before + 1
+                want = pack_tables_plain(scene, cam, host["slots"], n_cubic=host["n_cubic"],
+                                         row0=row0)
+                for i, (g, w) in enumerate(zip(got, want)):
+                    assert g.dtype == w.dtype and g.shape == w.shape, (name, i)
+                    assert torch.equal(_bits(g), _bits(w)), (name, pose, dtype, row0, i)
+
+
+def _seeded_vec(scene, seed):
+    n = acc_layout(scene.n_objects, scene.n_lights)[-1]
+    vec = np.random.default_rng(seed).standard_normal(n).astype(np.float32)
+    return torch.tensor(vec, device=scene.coefs.device)
+
+
+def _assert_grads_close(got, want, label):
+    """Every table's gradient bit for bit; the camera angles' within
+    CAMERA_GRAD_RTOL of the larger magnitude."""
+    for field, g, w in zip(GRAD_FIELDS, got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, (label, field)
+        if field in ("yaw_deg", "pitch_deg"):
+            scale = max(float(w.abs()), 1e-30)
+            assert float((g - w).abs()) <= CAMERA_GRAD_RTOL * scale, (label, field, g, w)
+        else:
+            assert torch.equal(g, w), (label, field)
+
+
+@pytest.mark.parametrize("name", SCENES)
+def test_pack_vjp_matches_plain(cuda, name):
+    """The packing VJP kernel against its plain version on a seeded
+    gradient vector, and a gradient left out where it is not wanted."""
+    scene = ttt.load_from_file(SCENE_DIR / f"{name}.yml", device=cuda)
+    gather = _host_half(scene, 3, None, None)["slots"][0]
+    cam = _camera(PACK_POSES[2], cuda)
+    vec = _seeded_vec(scene, 15)
+    before = pack_vjp.launches
+    got = pack_vjp(vec, gather, scene, cam)
+    torch.cuda.synchronize()
+    assert pack_vjp.launches == before + 1
+    _assert_grads_close(got, pack_vjp_plain(vec, gather, scene, cam), name)
+    wanted = [f in ("colors", "yaw_deg") for f in GRAD_FIELDS]
+    some = pack_vjp(vec, gather, scene, cam, wanted=wanted)
+    assert [g is not None for g in some] == wanted
+    assert torch.equal(some[1], got[1]) and torch.equal(some[8], got[8])
+
+
+@pytest.mark.parametrize("name", ["dingdong", "reflection_test", "20spheres"])
+def test_frame_gradients_match_packed_render(cuda, name):
+    """A differentiable frame through the packing kernels (pack_frame and
+    pack_vjp, one launch each) against PackedRender with autograd through
+    the plain packing: every table's gradient bit for bit, tan_half_fov's
+    and the camera's within 1e-5 of their group's largest magnitude (a
+    closed form against autograd's rounding)."""
+    scene = _scene(name, cuda, 96, 64)
+    cam = _camera(PACK_POSES[2], cuda)
+    ramp = torch.linspace(0.1, 1.0, 64 * 96 * 3, device=cuda).reshape(64, 96, 3)
+
+    def leaves():
+        sl = {f: getattr(scene, f).detach().clone().requires_grad_() for f in GRAD_FIELDS[:7]}
+        cl = [getattr(cam, f).detach().clone().requires_grad_() for f in GRAD_FIELDS[7:]]
+        return dataclasses.replace(scene, **sl), ttt.Camera(*cl), [*sl.values(), *cl]
+
+    s1, c1, l1 = leaves()
+    before = (pack_tables.launches, pack_vjp.launches)
+    (ramp * render_rows_kernel(s1, c1, 0, 64)).sum().backward()
+    torch.cuda.synchronize()
+    assert (pack_tables.launches - before[0], pack_vjp.launches - before[1]) == (1, 1)
+    s2, c2, l2 = leaves()
+    with torch.no_grad():
+        _, kw = pack_frame(s2, c2, 0, 64)
+    # the plain packing, differentiable, on the same tensors
+    host = _host_half(s2, 3, None, None)
+    tables = pack_tables_plain(s2, c2, host["slots"], n_cubic=host["n_cubic"], row0=0)
+    (ramp * PackedRender.apply(*tables, kw)).sum().backward()
+    for field, a, b in zip(GRAD_FIELDS, l1, l2):
+        if field in ("tan_half_fov", "position", "yaw_deg", "pitch_deg"):
+            scale = max(float(b.grad.abs().max()), 1e-30)
+            assert float((a.grad - b.grad).abs().max()) <= 1e-5 * scale, (name, field)
+        else:
+            assert torch.equal(a.grad, b.grad), (name, field)
 
 
 # --- the plain pipeline, the gradient fallback and the CLI on the card ---

@@ -25,6 +25,7 @@ from tpu_ray_tracer_torch.models.scene import (
 from tpu_ray_tracer_torch.ops import camera as tcam
 from tpu_ray_tracer_torch.parity import PARITY_GATES
 from tpu_ray_tracer_torch.render import kernel_backend as kb
+from tpu_ray_tracer_torch.render import pack_kernel as pk
 
 from conftest import SCENE_NAMES, scene_path
 
@@ -224,7 +225,7 @@ def test_statics_and_packing_match_jax(name):
     j32 = jscene.astype(jnp.float32)
     t32 = tscene.astype(torch.float32)
     jl = np.asarray(pb._pack_lights(j32))
-    tl = kb._pack_lights(t32)
+    tl = pk._pack_lights(t32)
     np.testing.assert_allclose(tl.numpy(), jl, rtol=0, atol=1e-6)
     for pos, yaw, pitch in POSES:
         jc = trt.Camera(position=jnp.asarray(pos, jnp.float32),
@@ -232,13 +233,13 @@ def test_statics_and_packing_match_jax(name):
                         pitch_deg=jnp.asarray(pitch, jnp.float32))
         tc = camera_from_arrays(np.float32(pos), np.float32(yaw), np.float32(pitch), "cpu")
         for row0 in (0, 13):
-            np.testing.assert_allclose(kb._pack_camera(t32, tc, row0).numpy(),
+            np.testing.assert_allclose(pk._pack_camera(t32, tc, row0).numpy(),
                                        np.asarray(pb._pack_camera(j32, jc, row0=row0)),
                                        rtol=0, atol=1e-6)
     perm, n_cubic, _ = kb._statics_for(tscene.coefs)
     coefs = np.asarray(cc[list(perm)], np.float32)
     jt = np.asarray(pb._dir_form_table(jnp.asarray(coefs), jnp.asarray(jl), n_cubic))
-    tt = kb._dir_form_table(torch.from_numpy(coefs), tl, n_cubic)
+    tt = pk._dir_form_table(torch.from_numpy(coefs), tl, n_cubic)
     assert tt.dtype == torch.float32 and tt.shape == jt.shape
     np.testing.assert_allclose(tt.numpy(), jt, rtol=0, atol=1e-6)
 

@@ -1,0 +1,221 @@
+"""Where a graphed kernel-route frame's device time goes, and what it costs.
+
+    python -m tpu_ray_tracer_torch.frame_profile
+
+On the card, dingdong 1280x720 (the headline scene) at the bench's yaw
+sweep 90 + 1e-3 k:
+
+* ``ops``: the bench's forward sweep (``bench.frame`` over ``FRAMES``
+  poses plus the reference pose) and its forward+backward sweep
+  (``bench.frame_grads`` of the coefficients and light colours over
+  ``FRAMES`` poses), each captured as one CUDA graph as the bench captures
+  it, then one replay under torch.profiler: every device operation by name
+  with its count and its device time a frame, the operations a frame and
+  the device time a frame;
+* ``bench``: the bench's own dingdong stages (``bench._bench_fwd`` and
+  ``bench._bench_fwdbwd``): ``frame_ms_fwd``, the headline Mrays/s,
+  ``kernel_ms_fwd``, ``frame_ms_fwd_bwd`` and ``kernel_ms_bwd``;
+* ``calls``: one graphed ``render_image_kernel`` call as a user makes it
+  (forward; forward + ``backward()``), CUDA events over ``FRAMES`` calls
+  with the host's gaps, then ``HOST_CALLS`` calls under torch.profiler:
+  the host's operations a call by self time (``host_top``), and the
+  graphed kernel-route fit step (light colours x0.6, polish 2), the median
+  of steps 3-8 by CUDA events.
+
+It uses only what the port had before its packing became kernels, so a
+checkout of an earlier commit runs it with this file copied in; the
+packing kernels alone are timed by ``chip_smoke.py`` (phase 5b). Needs one
+CUDA device; prints one line a reading and, as its last line, one JSON
+object.
+"""
+
+from __future__ import annotations
+
+import collections
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FRAMES = 32       # the bench's sweep (TRT_BENCH_FRAMES)
+FIT_STEPS = 8     # the fit step timed; the median of steps 3-8 (the replays)
+TOP_OPS = 40      # device operations listed, by device time
+HOST_CALLS = 8    # the graphed calls profiled on the host
+HOST_TOP = 12     # host operations listed, by self time
+
+
+def _device_ops(fn, frames: int) -> dict:
+    """One ``fn()`` under torch.profiler: the device's operations by name
+    (count and device us, each a frame), their number and device ms a
+    frame."""
+    from torch.autograd import DeviceType
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name = collections.defaultdict(lambda: [0, 0.0])
+    for e in device:
+        by_name[e.name][0] += 1
+        by_name[e.name][1] += e.time_range.elapsed_us()
+    ops = sorted(((name, n / frames, us / frames) for name, (n, us) in by_name.items()),
+                 key=lambda t: -t[2])
+    return {"ops_a_frame": len(device) / frames,
+            "device_ms_a_frame": sum(e.time_range.elapsed_us() for e in device) / 1e3 / frames,
+            "by_name": [{"name": name[:120], "count": n, "us": us}
+                        for name, n, us in ops[:TOP_OPS]]}
+
+
+def _sweep_graph(device, body):
+    """The bench's sweep graph (``bench._sweep_s``): the eager warm-up on a
+    side stream, the capture, one warm replay."""
+    from .render import graphs
+
+    graphs.warmup(device, body)
+    sweep = graphs.capture(device, body)
+    graphs.replay(sweep)
+    torch.cuda.synchronize(device)
+    return sweep
+
+
+def profile_ops(dev, scene) -> dict:
+    """``ops``: the forward and forward+backward sweeps' device operations."""
+    from . import bench
+    from .diff.inverse import extract_params
+    from .ops.camera import Camera
+    from .render import graphs
+
+    scene32 = scene.astype(torch.float32)
+    cams = bench.sweep_cameras(FRAMES, dev)
+    ref_cam = Camera.initial(torch.float32, dev)
+
+    def fwd_sweep():
+        with torch.no_grad():
+            sums = [bench.frame(scene32, c, 0).sum() for c in cams]
+            sums.append(bench.frame(scene32, ref_cam, 0).sum())
+            return torch.stack(sums)
+
+    params = extract_params(scene32)
+
+    def fwdbwd_sweep():
+        return torch.stack([sum(g.sum() for g in bench.frame_grads(scene32, params, c,
+                                                                   0).values())
+                            for c in cams])
+
+    out = {}
+    for what, body, frames in (("forward", fwd_sweep, FRAMES + 1),
+                               ("fwd+bwd", fwdbwd_sweep, FRAMES)):
+        sweep = _sweep_graph(dev, body)
+        out[what] = _device_ops(lambda: graphs.replay(sweep), frames)
+        del sweep
+    return out
+
+
+def bench_stages(scene) -> dict:
+    """``bench``: the bench's dingdong forward and forward+backward stages."""
+    from . import bench
+
+    with bench._Progress() as progress:
+        fwd = bench._bench_fwd(progress, "dingdong", scene, frames=FRAMES, scale=1,
+                               extra_launches={})
+        fwdbwd = bench._bench_fwdbwd(progress, "dingdong", scene, frames=FRAMES,
+                                     extra_launches={})
+    return {"frame_ms_fwd_dingdong": fwd["frame_ms_fwd"], "mrays_fwd_dingdong": fwd["mrays_fwd"],
+            "kernel_ms_fwd_dingdong": fwd["kernel_ms_fwd"],
+            "parity_dingdong": fwd["parity_bad_px_fraction"],
+            "frame_ms_fwd_bwd_dingdong": fwdbwd["frame_ms_fwd_bwd"],
+            "kernel_ms_bwd_dingdong": fwdbwd["kernel_ms_bwd"]}
+
+
+def graphed_calls(dev, scene) -> dict:
+    """``calls``: one graphed forward call and forward+backward call as a
+    user makes them, and the graphed kernel-route fit step."""
+    import dataclasses
+
+    from .bench import sweep_cameras
+    from .kernel_bench import timed_ms
+    from .pipeline_profile import fit_problem, step_call
+    from .render.kernel_backend import render_image_kernel
+
+    cams = sweep_cameras(FRAMES, dev)
+    leaves = {f: getattr(scene, f).detach().clone().requires_grad_()
+              for f in ("coefs", "light_color")}
+    g_scene = dataclasses.replace(scene, **leaves)
+    ramp = torch.linspace(0.1, 1.0, scene.height * scene.width * 3, device=dev).reshape(
+        scene.height, scene.width, 3)
+
+    def forward_call(k):
+        render_image_kernel(scene, cams[k])
+
+    def fwd_bwd_call(k):
+        (ramp * render_image_kernel(g_scene, cams[k])).sum().backward()
+
+    out = {}
+    for what, fn in (("forward_call", forward_call), ("fwd_bwd_call", fwd_bwd_call)):
+        fn(0)
+        fn(1)  # a key's warm-up and its capture
+        out[f"{what}_ms"] = timed_ms(fn, FRAMES)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for k in range(HOST_CALLS):
+                fn(k)
+            torch.cuda.synchronize()
+        events = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+        out[f"{what}_host_us"] = sum(e.self_cpu_time_total for e in events) / HOST_CALLS
+        out[f"{what}_host_top"] = [
+            {"name": e.key[:80], "count": e.count / HOST_CALLS,
+             "self_us": e.self_cpu_time_total / HOST_CALLS} for e in events[:HOST_TOP]]
+    step = step_call(*fit_problem(scene, ["light_color"], "kernel"))
+    times = []
+    for k in range(FIT_STEPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(k)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    out["fit_step_ms"] = float(np.median(times[2:]))
+    out["fit_step_ms_all"] = times
+    return out
+
+
+def _power_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout
+    return out.strip().splitlines()[0]
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        raise SystemExit("frame_profile: needs a CUDA device (torch.cuda.is_available() is "
+                         "false)")
+    from .models.loader import load_from_file
+
+    dev = torch.device("cuda", 0)
+    smi = _power_line()
+    scene = load_from_file(os.path.join(REPO, "scenes", "dingdong.yml"), device=dev)
+    result = {"device": smi, "frames": FRAMES, "ops": profile_ops(dev, scene)}
+    for what, r in result["ops"].items():
+        print(f"[frame-profile] graphed {what} sweep, dingdong 1280x720: "
+              f"{r['ops_a_frame']:.2f} device ops a frame, {r['device_ms_a_frame']:.4f} ms "
+              f"device a frame ({smi})", flush=True)
+        for op in r["by_name"]:
+            print(f"[frame-profile]   {what}: {op['count']:.3f} x {op['name']}: "
+                  f"{op['us']:.3f} us a frame", flush=True)
+    result["bench"] = bench_stages(scene)
+    result["calls"] = graphed_calls(dev, scene)
+    for key, value in [*result["bench"].items(), *result["calls"].items()]:
+        print(f"[frame-profile] {key}: {value} ({smi})", flush=True)
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -46,6 +46,18 @@ _SIGNATURES = {
         "trt_render_bwd_plan": ([ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong)],
                                 ctypes.c_int),
     },
+    "pack": {
+        # 10 float inputs, light kinds, gather, posdef | f64 mask | 8 tables
+        # | n_obj n_cubic n_lights | aspect | row0 | stream
+        "trt_pack_frame": ([ctypes.c_void_p] * 13 + [ctypes.c_int] + [ctypes.c_void_p] * 8
+                           + [ctypes.c_int] * 3 + [ctypes.c_double, ctypes.c_int,
+                                                   ctypes.c_void_p], ctypes.c_int),
+        # gradient vector, gather, yaw, pitch | their f64 bits | 10 gradients
+        # | f64 mask n_obj n_lights | aspect | stream
+        "trt_pack_vjp": ([ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 10
+                         + [ctypes.c_int] * 3 + [ctypes.c_double, ctypes.c_void_p],
+                         ctypes.c_int),
+    },
 }
 
 

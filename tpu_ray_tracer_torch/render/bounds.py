@@ -431,3 +431,48 @@ def bwd_work(tables, kw, aux) -> dict:
     return {"ops": ops,
             "bytes": 4 * (table_floats + bk.acc_layout(n_obj, n_lights)[-1])
                      + n_px * (12 + 12 * n_stages)}
+
+
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def pack_work(scene, camera) -> dict:
+    """{"ops", "bytes"} of one ``pack_tables`` call (``csrc/pack.cu``'s
+    ``pack_frame_kernel``) on this scene and camera. Operations: each
+    direction-form entry of a cubic slot (its 10 monomials at 2 products
+    each, 10 products, 9 adds) or of a quadric one (6 monomials, 6 products,
+    5 adds), the camera frame (``ops.camera.camera_frame``, counted) and
+    aspect * tanf. Bytes: every input read once (the scene's and camera's
+    tensors in their dtypes, the gather index and posdef) and the 8 tables
+    written once. Bound by its bytes, and both far below its launch."""
+    from ..ops import camera as camera_ops
+    from .pack_kernel import grad_tensors
+
+    n_obj, n_lights = scene.coefs.shape[0], scene.light_p.shape[0]
+    n_cubic = int((scene.coefs[:, :fk.QUAD_START].abs() > 0).any(1).sum())
+    cam32 = camera_ops.Camera(*(t.detach().to(torch.float32) for t in
+                                (camera.position, camera.yaw_deg, camera.pitch_deg)))
+    ops = (n_lights * (n_cubic * 39 + (n_obj - n_cubic) * 17)
+           + count_ops(camera_ops.camera_frame, cam32) + 1)
+    read = _nbytes(grad_tensors(scene, camera)) + n_lights + n_obj * (8 + 4)
+    written = 4 * (n_obj * (N_COEFS + 1 + 3 + 1 + 1) + 7 * n_lights + n_lights * n_obj + 18)
+    return {"ops": ops, "bytes": read + written}
+
+
+def vjp_work(scene, camera) -> dict:
+    """{"ops", "bytes"} of one ``pack_vjp`` call (``pack_vjp_kernel``)
+    writing every gradient: the camera's closed form
+    (``pack_kernel.camera_vjp_plain``, counted) and tan_half_fov's product
+    and add; the gradient vector, the gather index and the angles read
+    once, each gradient written once in its tensor's dtype."""
+    from .pack_kernel import camera_vjp_plain, grad_tensors
+
+    n_obj, n_lights = scene.coefs.shape[0], scene.light_p.shape[0]
+    total = bk.acc_layout(n_obj, n_lights)[-1]
+    ops = count_ops(camera_vjp_plain, torch.zeros(18), camera.yaw_deg.detach().cpu(),
+                    camera.pitch_deg.detach().cpu()) + 2
+    angles = (camera.yaw_deg, camera.pitch_deg)
+    return {"ops": ops,
+            "bytes": 4 * total + 8 * n_obj + _nbytes(angles) + _nbytes(grad_tensors(scene,
+                                                                                    camera))}

@@ -7,7 +7,7 @@ an executable that ``jax.jit`` compiled once for its static arguments
 the jitted ``train_step``, ``tpu_ray_tracer/diff/inverse.py:263``;
 ``bench.py``'s ``fwd_many`` and ``fwdbwd_many``). Here the same work is
 captured once into a ``torch.cuda.CUDAGraph`` and replayed: one graph launch
-in place of the ~70 launches of a frame's packing and kernel, or the ~600
+in place of a frame's launches (its packing and its kernel), or the ~600
 operations of a fit step.
 
 A captured graph reads and writes fixed addresses, so:
@@ -59,6 +59,7 @@ import torch
 
 from .bwd_kernel import render_bwd
 from .fwd_kernel import render_fwd
+from .pack_kernel import pack_tables, pack_vjp
 
 # Graphs a cache keeps (keys seen once included); the least recently used
 # goes first. Each keeps its private memory pool on the card (chip_smoke.py
@@ -75,7 +76,9 @@ def _counters():
     """(name, holder, field) of every launch counter of the wrappers."""
     return ([("render_fwd", render_fwd.__dict__, "launches"),
              ("render_fwd.save_aux", render_fwd.__dict__, "launches_save_aux"),
-             ("render_bwd", render_bwd.__dict__, "launches")]
+             ("render_bwd", render_bwd.__dict__, "launches"),
+             ("pack_frame", pack_tables.__dict__, "launches"),
+             ("pack_vjp", pack_vjp.__dict__, "launches")]
             + [(f"render_fwd.{k}", render_fwd.launches_by_variant, k)
                for k in render_fwd.launches_by_variant]
             + [(f"render_bwd.{k}", render_bwd.launches_by_placement, k)

@@ -7,17 +7,20 @@ Counterpart of the host-side code of
 ``_render_pallas_jit`` :1457, and the ``custom_vjp`` pair ``_packed_render``
 / ``_packed_fwd`` / ``_packed_bwd`` :2032-2120). A frame is: the scene
 statics (cubics-first slot order, per-slot posdef, whether the chain runs),
-memoised per table; the packed tables (``_pack_lights``, ``_pack_camera``,
-``_dir_form_table``) built with torch on the scene's device; one
-``render_fwd`` launch.
+memoised per table; the packed tables (``pack_kernel.pack_tables``: one
+launch on the card, the counterpart of what XLA fuses around the Pallas
+call); one ``render_fwd`` launch.
 
 The render is differentiable. When grad mode is on and a scene or camera
-tensor requires grad, the frame goes through ``PackedRender``: the forward
-saves its per-stage aux (``render_fwd(..., save_aux=True)``) and the
-backward is one ``render_bwd`` call on it, whose gradient rows autograd
-carries back through the packing (the slot gather, the f32 casts and the
-camera frame) to the scene's and camera's own tensors, as ``jax.grad``
-carries them through ``jnp.take``, ``_pack_lights`` and ``_pack_camera``.
+tensor requires grad, the frame goes through ``FrameRender``: the forward
+packs the tables and saves its per-stage aux (``render_fwd(...,
+save_aux=True)``), and the backward is one ``render_bwd`` call on it and
+one ``pack_vjp`` call, which takes the gradient rows back through the
+packing (the slot gather, the f32 casts and the camera frame) to the
+scene's and camera's own tensors, as ``jax.grad`` carries them through
+``jnp.take``, ``_pack_lights`` and ``_pack_camera``. Autograd records no
+torch op of the packing. ``PackedRender`` is the same render for a caller
+that holds packed tables.
 
 The fused backward encodes a scene with at least one object and at most 31
 lights (the i32 occlusion mask). A gradient of any other scene goes through
@@ -50,11 +53,11 @@ import numpy as np
 import torch
 
 from ..models.scene import Scene
-from ..models.surface import MONOMIAL_POWERS
 from ..ops import camera as camera_ops
 from . import graphs, pipeline
 from .bwd_kernel import render_bwd, split_grad
 from .fwd_kernel import MAX_AUX_LIGHTS, QUAD_START, render_fwd
+from .pack_kernel import SCENE_GRAD_FIELDS, grad_tensors, pack_tables, pack_vjp
 
 # Numerics knobs of the Pallas kernel, fixed at their defaults there:
 # `_shadow_polish_default()` (:1235) and `_screen_iters_default()` (:1240).
@@ -151,60 +154,6 @@ def _light_kinds_of(light_is_spherical) -> tuple:
     return tuple(bool(x) for x in torch.as_tensor(light_is_spherical).tolist())
 
 
-def _pack_lights(scene: Scene) -> torch.Tensor:
-    """[L, 7] f32: is_spherical, p (3), color (3)."""
-    return torch.cat(
-        [scene.light_is_spherical.to(torch.float32)[:, None],
-         scene.light_p.to(torch.float32),
-         scene.light_color.to(torch.float32)],
-        dim=1,
-    )
-
-
-def _pack_camera(scene: Scene, camera: camera_ops.Camera, row0: int = 0) -> torch.Tensor:
-    """[18] f32: rotation columns (9), eye (3), aspect*tanf, tanf, bg (3),
-    row0. The camera frame is computed in f32, as the Pallas path does."""
-    dev = scene.coefs.device
-    rotation, eye = camera_ops.camera_frame(camera.to(torch.float32, dev))
-    tanf = scene.tan_half_fov.to(torch.float32)
-    return torch.cat([
-        rotation.T.reshape(-1),  # columns flattened
-        eye,
-        (tanf * scene.aspect_ratio)[None],
-        tanf[None],
-        scene.bg_color.to(torch.float32),
-        torch.full((1,), float(row0), dtype=torch.float32, device=dev),
-    ])
-
-
-def _dir_form_table(coefs: torch.Tensor, lights: torch.Tensor, n_cubic: int) -> torch.Tensor:
-    """[L, N] frame constants for directional lights: entry (li, i) is the
-    cubic form C_i(d_li) for cubic slots and the quadratic form Q_i(d_li) for
-    quadric slots, d_li being the light's stored unit direction
-    (lights[:, 1:4]). Rows of spherical lights are never read.
-
-    The entries feed knife-edge occlusion sign tests, so they are computed in
-    true f32: products and a sum, never a matrix product, so no TF32 or
-    reduced-precision matmul setting can reach them (a bf16 version of this
-    table flipped 499 penumbra pixels on 20spheres in the JAX package)."""
-    comps = [lights[:, 1], lights[:, 2], lights[:, 3]]
-
-    def mono(pows):
-        out = None
-        for axis in range(3):
-            for _ in range(pows[axis]):
-                out = comps[axis] if out is None else out * comps[axis]
-        return out
-
-    cub = torch.stack([mono(MONOMIAL_POWERS[m]) for m in range(QUAD_START)], dim=1)
-    quad = torch.stack([mono(MONOMIAL_POWERS[m]) for m in range(QUAD_START, QUAD_START + 6)],
-                       dim=1)
-    c_tbl = (cub[:, None, :] * coefs[None, :, :QUAD_START]).sum(-1)
-    q_tbl = (quad[:, None, :] * coefs[None, :, QUAD_START:QUAD_START + 6]).sum(-1)
-    slot_cubic = torch.arange(coefs.shape[0], device=coefs.device) < n_cubic
-    return torch.where(slot_cubic[None, :], c_tbl, q_tbl).contiguous()
-
-
 def _iteration_counts(scene: Scene, polish_iters: int, bounces, shadow_iters):
     """(bounces, shadow_iters) of a frame: the reflection chain's length
     (``max_reflections`` when any object reflects, unless given) and the
@@ -219,27 +168,23 @@ def _iteration_counts(scene: Scene, polish_iters: int, bounces, shadow_iters):
 def _pack(scene: Scene, camera: camera_ops.Camera, row0: int, rows: int, n_cubic: int,
           slots, polish_iters: int, bounces: int, shadow_iters: int):
     """``pack_frame`` with its host half done: the statics' ``n_cubic`` and
-    slot tables (``_slot_tables``) given. Device operations only, so a CUDA
-    graph can capture it."""
-    gather, orig_index, posdef = slots
-    scene32 = scene.astype(torch.float32)
-    coefs = scene32.coefs.index_select(0, gather)
-    lights = _pack_lights(scene32)
-    tables = (
-        coefs,
-        orig_index,
-        scene32.colors.index_select(0, gather),
-        scene32.reflection.index_select(0, gather),
-        lights,
-        _dir_form_table(coefs, lights, n_cubic),
-        posdef,
-        _pack_camera(scene32, camera, row0),
-    )
+    slot tables (``_slot_tables``) given. Device operations only (one
+    ``pack_tables`` launch on the card), so a CUDA graph can capture it."""
+    scene, camera = _on_device(scene, camera)
+    tables = pack_tables(scene, camera, slots, n_cubic=n_cubic, row0=int(row0))
     kwargs = dict(width=scene.width, height=scene.height, rows=int(rows),
                   n_cubic=n_cubic, polish_iters=int(polish_iters),
                   shadow_iters=shadow_iters, screen_iters=SCREEN_ITERS,
                   bounces=bounces)
     return tables, kwargs
+
+
+def _on_device(scene: Scene, camera: camera_ops.Camera):
+    """(scene, camera) with their differentiable tensors contiguous and the
+    camera's on the scene's device, as the packing kernel reads them (no
+    copy where they already are)."""
+    dev = scene.coefs.device
+    return _with_tensors(scene, [t.to(dev).contiguous() for t in grad_tensors(scene, camera)])
 
 
 def pack_frame(scene: Scene, camera: camera_ops.Camera, row0: int, rows: int,
@@ -292,22 +237,10 @@ class PackedRender(torch.autograd.Function):
                 None, grads["cam"], None)
 
 
-# The scene's and the camera's differentiable tensors, in the order
-# ``PipelineGradRender`` takes them.
-_SCENE_GRAD_FIELDS = ("coefs", "colors", "reflection", "light_p", "light_color", "bg_color",
-                      "tan_half_fov")
-_CAMERA_FIELDS = ("position", "yaw_deg", "pitch_deg")
-
-
-def _grad_tensors(scene: Scene, camera: camera_ops.Camera) -> tuple:
-    return (*(getattr(scene, f) for f in _SCENE_GRAD_FIELDS),
-            *(getattr(camera, f) for f in _CAMERA_FIELDS))
-
-
 def _with_tensors(scene: Scene, tensors) -> tuple:
-    """(scene, camera) with ``_grad_tensors``' tensors replaced."""
-    n = len(_SCENE_GRAD_FIELDS)
-    return (dataclasses.replace(scene, **dict(zip(_SCENE_GRAD_FIELDS, tensors[:n]))),
+    """(scene, camera) with ``grad_tensors``' tensors replaced."""
+    n = len(SCENE_GRAD_FIELDS)
+    return (dataclasses.replace(scene, **dict(zip(SCENE_GRAD_FIELDS, tensors[:n]))),
             camera_ops.Camera(*tensors[n:]))
 
 
@@ -315,12 +248,54 @@ def _wants_grad(scene: Scene, camera: camera_ops.Camera) -> bool:
     """Whether autograd would record the render: grad mode on and any
     differentiable scene or camera tensor requiring grad."""
     return torch.is_grad_enabled() and any(t.requires_grad
-                                           for t in _grad_tensors(scene, camera))
+                                           for t in grad_tensors(scene, camera))
 
 
 def _fused_backward_encodes(scene: Scene) -> bool:
     """At least one object and at most 31 lights (the i32 occlusion mask)."""
     return scene.n_objects > 0 and scene.n_lights <= MAX_AUX_LIGHTS
+
+
+class FrameRender(torch.autograd.Function):
+    """The differentiable frame from the scene's and camera's own tensors:
+    the forward is ``pack_tables`` and ``render_fwd`` with ``save_aux``, the
+    backward one ``render_bwd`` on that aux and one ``pack_vjp``, which
+    takes the tables' gradient rows back to the tensors (the counterpart of
+    ``_render_pallas_jit``'s packing and ``_packed_render``'s VJP, which
+    ``jax.grad`` fuses).
+
+    Inputs: the scene (its differentiable tensors are replaced by the last
+    ones), the frame's host half (``_host_half``), the rows (row0, rows),
+    then ``grad_tensors``' 10 tensors. Each gets its gradient in its own
+    dtype where ``ctx.needs_input_grad`` asks for it. The direction-form
+    table gets none: it feeds only the occlusion tests, which the JAX VJP
+    never differentiates."""
+
+    @staticmethod
+    def forward(ctx, scene, host, row0, rows, *tensors):
+        scene, camera = _on_device(*_with_tensors(scene, tensors))
+        tables, kwargs = _pack(scene, camera, row0, rows, **host)
+        image, *aux = render_fwd(*tables, **kwargs, save_aux=True)
+        coefs, _, colors, refl, lights, _, _, cam = tables
+        ctx.save_for_backward(coefs, colors, refl, lights, cam, *aux,
+                              *grad_tensors(scene, camera))
+        ctx.scene, ctx.kwargs, ctx.gather = scene, kwargs, host["slots"][0]
+        ctx.devices = [t.device for t in tensors]
+        return image
+
+    @staticmethod
+    def backward(ctx, grad_image):
+        coefs, colors, refl, lights, cam, aux_t, aux_slot, aux_occ, *leaves = ctx.saved_tensors
+        kw = ctx.kwargs
+        vec = render_bwd(coefs, colors, refl, lights, cam,
+                         grad_image.to(torch.float32).contiguous(), aux_t, aux_slot, aux_occ,
+                         width=kw["width"], height=kw["height"], rows=kw["rows"],
+                         n_lights=lights.shape[0], bounces=kw["bounces"])
+        scene, camera = _with_tensors(ctx.scene, leaves)
+        grads = pack_vjp(vec, ctx.gather, scene, camera, wanted=ctx.needs_input_grad[4:])
+        return (None, None, None, None,
+                *(g if g is None or g.device == d else g.to(d)
+                  for g, d in zip(grads, ctx.devices)))
 
 
 class PipelineGradRender(torch.autograd.Function):
@@ -340,7 +315,7 @@ class PipelineGradRender(torch.autograd.Function):
 
     Inputs: the scene (its differentiable tensors are replaced by the next
     ones), the frame's host half (``_host_half``: the iteration counts and
-    the slot statics, derived outside any capture), then ``_grad_tensors``'
+    the slot statics, derived outside any capture), then ``grad_tensors``'
     10 tensors. A requested gradient that the frame does not depend on (a
     light's, with no object) is zero. On the card the forward and the
     backward each replay a CUDA graph (``_pipeline_grad_frame``).
@@ -384,8 +359,8 @@ def _host_half(scene: Scene, polish_iters: int, bounces, shadow_iters) -> dict:
 
 def _frame_tensors(scene: Scene, camera: camera_ops.Camera) -> list:
     """Every tensor a frame reads, in the order its graphs take them:
-    ``_grad_tensors``' and the light kinds."""
-    return [*_grad_tensors(scene, camera), scene.light_is_spherical]
+    ``grad_tensors``' and the light kinds."""
+    return [*grad_tensors(scene, camera), scene.light_is_spherical]
 
 
 # The frames' graphs (forward, and forward + backward), by key.
@@ -394,8 +369,8 @@ _FRAMES = graphs.GraphCache()
 
 class _GradFrame:
     """The two graphs of a differentiable frame: the forward (the packing
-    and K1 with its aux) and the backward (K2, ``split_grad`` and autograd
-    back through the packing), captured one after the other into one memory
+    and K1 with its aux) and the backward (K2 and the packing's VJP, or
+    the pipeline's recompute for ``PipelineGradRender``), captured one after the other into one memory
     pool, where the forward leaves the aux that the backward reads.
 
     The pool holds one forward's saved tensors at a time: ``current`` is
@@ -483,9 +458,9 @@ def _render_rows_graphed(scene: Scene, camera: camera_ops.Camera, row0: int, row
     def body(*tensors):
         s, c = _with_tensors(dataclasses.replace(scene, light_is_spherical=tensors[-1]),
                              tensors[:-1])
-        tables, kwargs = _pack(s, c, row0, rows, **host)
         if wants_grad:
-            return PackedRender.apply(*tables, kwargs)
+            return FrameRender.apply(s, host, row0, rows, *grad_tensors(s, c))
+        tables, kwargs = _pack(s, c, row0, rows, **host)
         return render_fwd(*tables, **kwargs)
 
     return _replay_frame(key, scene.coefs.device, body, _frame_tensors(scene, camera),
@@ -504,11 +479,11 @@ def _render_rows_eager(scene: Scene, camera: camera_ops.Camera, row0: int, rows:
                        *, polish_iters: int = 3, bounces: int | None = None,
                        shadow_iters: int | None = None) -> torch.Tensor:
     """``render_rows_kernel``'s eager body: the packing, then one
-    ``render_fwd`` launch, through ``PackedRender`` when differentiable."""
-    tables, kwargs = pack_frame(scene, camera, row0, rows, polish_iters=polish_iters,
-                                bounces=bounces, shadow_iters=shadow_iters)
+    ``render_fwd`` launch, through ``FrameRender`` when differentiable."""
+    host = _host_half(scene, polish_iters, bounces, shadow_iters)
     if _wants_grad(scene, camera):
-        return PackedRender.apply(*tables, kwargs)
+        return FrameRender.apply(scene, host, row0, rows, *grad_tensors(scene, camera))
+    tables, kwargs = _pack(scene, camera, row0, rows, **host)
     return render_fwd(*tables, **kwargs)
 
 
@@ -531,7 +506,7 @@ def render_rows_kernel(scene: Scene, camera: camera_ops.Camera, row0: int, rows:
     eagerly (``_render_rows_eager``).
 
     Differentiable when a scene or camera tensor requires grad (see
-    ``PackedRender``); on the card the forward and the backward each replay
+    ``FrameRender``); on the card the forward and the backward each replay
     a graph and the gradients are fresh tensors. The gradients of row blocks
     sum to the frame's. The fused backward covers scenes with at least one
     object and at most 31 lights; for any other scene this row-block form
@@ -564,7 +539,7 @@ def _pipeline_grad_frame(scene: Scene, camera: camera_ops.Camera, polish_iters: 
     host = _host_half(scene, polish_iters, bounces, shadow_iters)
     device = scene.coefs.device
     if not graphs.active(device):
-        return PipelineGradRender.apply(scene, host, *_grad_tensors(scene, camera))
+        return PipelineGradRender.apply(scene, host, *grad_tensors(scene, camera))
     key = ("pipeline_grad", _frame_key(scene, camera, 0, scene.height, polish_iters,
                                        host["bounces"], host["shadow_iters"], True))
 
@@ -581,7 +556,7 @@ def render_image_kernel(scene: Scene, camera: camera_ops.Camera | None = None,
     """Render a full frame -> [H, W, 3] f32 on the scene's device, row 0 at
     the bottom: the counterpart of ``render_image_pallas``.
 
-    Differentiable: with the fused backward (``PackedRender``,
+    Differentiable: with the fused backward (``FrameRender``,
     ``render_rows_kernel``) where it encodes the scene, else through
     ``PipelineGradRender``, whose backward recomputes the frame through the
     plain pipeline. On the card both replay CUDA graphs, a forward graph and
