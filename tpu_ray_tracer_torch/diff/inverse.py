@@ -52,6 +52,7 @@ from ..render import graphs
 from ..render.fwd_kernel import MAX_AUX_LIGHTS
 from ..render.kernel_backend import _slot_tables, _statics_for, render_rows_kernel
 from ..render.pipeline import RenderConfig, render_rays, resolve_bounces
+from ..utils.timing import span
 
 # --- parameterization ---
 
@@ -336,7 +337,12 @@ def make_train_step(problem: InverseProblem, group=None):
     that requires grad without being a parameter, inside ``graphs.eager()``,
     and where its key's warm-up held more than ``graphs.MAX_GRAPH_BYTES``
     (counted in the cache's ``over_bound``). ``train_step.graphs`` is its
-    ``GraphCache``."""
+    ``GraphCache``.
+
+    While a torch profiler runs, a step shows as the span ``trt.step``, its
+    host work before the graph (the parameters, the statics, the inputs and
+    the key) as ``trt.step.key``, and the loss's read-back, where the host
+    waits for the device, as ``trt.step.wait``."""
     loss_fn = make_loss_fn(problem, group)
 
     def eager_step(params, optimizer, camera, target, tau=None):
@@ -350,38 +356,45 @@ def make_train_step(problem: InverseProblem, group=None):
     cache = graphs.GraphCache()
 
     def train_step(params, optimizer, camera, target, tau=None) -> float:
-        tensors = param_tensors(params)
-        fixed_camera = ([] if "camera" in params
-                        else [camera.position, camera.yaw_deg, camera.pitch_deg])
-        if not (loss_fn.n_ranks == 1 and graphs.active(target.device)
-                and all(g.get("capturable") for g in optimizer.param_groups)
-                and not any(t.requires_grad for t in fixed_camera)):
-            return float(eager_step(params, optimizer, camera, target, tau))
-        if loss_fn.use_kernel:  # the host half of the frame, outside any capture
-            _slot_tables(params.get("coefs", loss_fn.template.coefs))
-        inputs = [target, *fixed_camera]
-        if problem.soft_tau is not None:
-            inputs.append(_tau_tensor(problem.soft_tau if tau is None else tau, target.device))
-        key = _step_key(loss_fn, params, optimizer, inputs)
+        with span("trt.step"):
+            with span("trt.step.key"):
+                tensors = param_tensors(params)
+                fixed_camera = ([] if "camera" in params
+                                else [camera.position, camera.yaw_deg, camera.pitch_deg])
+                graphed = (loss_fn.n_ranks == 1 and graphs.active(target.device)
+                           and all(g.get("capturable") for g in optimizer.param_groups)
+                           and not any(t.requires_grad for t in fixed_camera))
+                if graphed:
+                    if loss_fn.use_kernel:  # the host half of the frame, outside any capture
+                        _slot_tables(params.get("coefs", loss_fn.template.coefs))
+                    inputs = [target, *fixed_camera]
+                    if problem.soft_tau is not None:
+                        inputs.append(_tau_tensor(problem.soft_tau if tau is None else tau,
+                                                  target.device))
+                    key = _step_key(loss_fn, params, optimizer, inputs)
+                    # Adam creates its state (step, moments) at a parameter's
+                    # first step. Captured, that zero-fill would run again at
+                    # every replay, so a step with no state yet is a warm-up,
+                    # whether or not the key has a graph (a new optimizer, or
+                    # new parameters, under a cached key).
+                    warm = not all(optimizer.state.get(t) for t in tensors)
+            if not graphed:
+                return float(eager_step(params, optimizer, camera, target, tau))
 
-        def body(target, *rest):
-            camera, tau = rest[:len(fixed_camera)], rest[len(fixed_camera):]
-            return eager_step(params, optimizer,
-                              camera_ops.Camera(*camera) if camera else None, target,
-                              tau[0] if tau else None)
+            def body(target, *rest):
+                camera, tau = rest[:len(fixed_camera)], rest[len(fixed_camera):]
+                return eager_step(params, optimizer,
+                                  camera_ops.Camera(*camera) if camera else None, target,
+                                  tau[0] if tau else None)
 
-        def make():
-            return _StepGraph(target.device, body, inputs, tensors, optimizer)
+            def make():
+                return _StepGraph(target.device, body, inputs, tensors, optimizer)
 
-        # Adam creates its state (step, moments) at a parameter's first step.
-        # Captured, that zero-fill would run again at every replay, so a
-        # step with no state yet is a warm-up, whether or not the key has a
-        # graph (a new optimizer, or new parameters, under a cached key).
-        return float(cache.run(
-            key, target.device, make,
-            lambda: eager_step(params, optimizer, camera, target, tau), inputs, tensors,
-            warm=not all(optimizer.state.get(t) for t in tensors),
-            current=lambda graph: graph.guard == _step_guard(tensors, optimizer)))
+            return float(cache.run(
+                key, target.device, make,
+                lambda: eager_step(params, optimizer, camera, target, tau), inputs, tensors,
+                warm=warm,
+                current=lambda graph: graph.guard == _step_guard(tensors, optimizer)))
 
     train_step.graphs = cache
     return train_step
@@ -438,7 +451,8 @@ class _StepGraph(graphs.Graph):
         for t, g in zip(tensors, self.grads):
             t.grad = g
             torch.autograd.graph.increment_version(t)  # the replay updated it in place
-        return float(self.captured.outputs)
+        with span("trt.step.wait"):
+            return float(self.captured.outputs)
 
 
 def pad_target(target, height: int) -> torch.Tensor:

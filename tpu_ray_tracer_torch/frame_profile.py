@@ -14,13 +14,11 @@ sweep 90 + 1e-3 k:
   the device time a frame;
 * ``bench``: the bench's own dingdong stages (``bench._bench_fwd`` and
   ``bench._bench_fwdbwd``): ``frame_ms_fwd``, the headline Mrays/s,
-  ``kernel_ms_fwd``, ``frame_ms_fwd_bwd`` and ``kernel_ms_bwd``;
-* ``calls``: one graphed ``render_image_kernel`` call as a user makes it
-  (forward; forward + ``backward()``), CUDA events over ``FRAMES`` calls
-  with the host's gaps, then ``HOST_CALLS`` calls under torch.profiler:
-  the host's operations a call by self time (``host_top``), and the
-  graphed kernel-route fit step (light colours x0.6, polish 2), the median
-  of steps 3-8 by CUDA events.
+  ``kernel_ms_fwd``, ``frame_ms_fwd_bwd`` and ``kernel_ms_bwd``.
+
+The host's side of a user's graphed call and fit step is the benchmark's
+traced run (``python3 -m port_bench.run --trace 1``): the port's spans and
+the ``program_*`` metrics that read them.
 
 It uses only what the port had before its packing became kernels, so a
 checkout of an earlier commit runs it with this file copied in; the
@@ -37,15 +35,11 @@ import os
 import subprocess
 import sys
 
-import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FRAMES = 32       # the bench's sweep (TRT_BENCH_FRAMES)
-FIT_STEPS = 8     # the fit step timed; the median of steps 3-8 (the replays)
 TOP_OPS = 40      # device operations listed, by device time
-HOST_CALLS = 8    # the graphed calls profiled on the host
-HOST_TOP = 12     # host operations listed, by self time
 
 
 def _device_ops(fn, frames: int) -> dict:
@@ -133,59 +127,6 @@ def bench_stages(scene) -> dict:
             "kernel_ms_bwd_dingdong": fwdbwd["kernel_ms_bwd"]}
 
 
-def graphed_calls(dev, scene) -> dict:
-    """``calls``: one graphed forward call and forward+backward call as a
-    user makes them, and the graphed kernel-route fit step."""
-    import dataclasses
-
-    from .bench import sweep_cameras
-    from .kernel_bench import timed_ms
-    from .pipeline_profile import fit_problem, step_call
-    from .render.kernel_backend import render_image_kernel
-
-    cams = sweep_cameras(FRAMES, dev)
-    leaves = {f: getattr(scene, f).detach().clone().requires_grad_()
-              for f in ("coefs", "light_color")}
-    g_scene = dataclasses.replace(scene, **leaves)
-    ramp = torch.linspace(0.1, 1.0, scene.height * scene.width * 3, device=dev).reshape(
-        scene.height, scene.width, 3)
-
-    def forward_call(k):
-        render_image_kernel(scene, cams[k])
-
-    def fwd_bwd_call(k):
-        (ramp * render_image_kernel(g_scene, cams[k])).sum().backward()
-
-    out = {}
-    for what, fn in (("forward_call", forward_call), ("fwd_bwd_call", fwd_bwd_call)):
-        fn(0)
-        fn(1)  # a key's warm-up and its capture
-        out[f"{what}_ms"] = timed_ms(fn, FRAMES)
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for k in range(HOST_CALLS):
-                fn(k)
-            torch.cuda.synchronize()
-        events = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
-        out[f"{what}_host_us"] = sum(e.self_cpu_time_total for e in events) / HOST_CALLS
-        out[f"{what}_host_top"] = [
-            {"name": e.key[:80], "count": e.count / HOST_CALLS,
-             "self_us": e.self_cpu_time_total / HOST_CALLS} for e in events[:HOST_TOP]]
-    step = step_call(*fit_problem(scene, ["light_color"], "kernel"))
-    times = []
-    for k in range(FIT_STEPS):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        step(k)
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    out["fit_step_ms"] = float(np.median(times[2:]))
-    out["fit_step_ms_all"] = times
-    return out
-
-
 def _power_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout
@@ -210,8 +151,7 @@ def main() -> int:
             print(f"[frame-profile]   {what}: {op['count']:.3f} x {op['name']}: "
                   f"{op['us']:.3f} us a frame", flush=True)
     result["bench"] = bench_stages(scene)
-    result["calls"] = graphed_calls(dev, scene)
-    for key, value in [*result["bench"].items(), *result["calls"].items()]:
+    for key, value in result["bench"].items():
         print(f"[frame-profile] {key}: {value} ({smi})", flush=True)
     print(json.dumps(result))
     return 0

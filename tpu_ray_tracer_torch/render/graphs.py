@@ -42,6 +42,13 @@ the wrappers without executing the kernels, so ``capture`` takes their
 increments back and records them, and each ``replay`` adds what was
 recorded: the counters count the launches that execute.
 
+While a torch profiler runs, the graphs' host work shows as spans
+(``utils.timing.span``): ``trt.graph.lookup`` (the key's graph and its
+guard), ``trt.graph.load`` (the input copies), ``trt.graph.replay`` (the
+launch and its counts), ``trt.graph.fresh`` (the output clones), and
+``trt.graph.warmup``, ``trt.graph.capture`` and ``trt.graph.eager`` for a
+key's warm-up, each capture and each call over the bound.
+
 While a graph is warmed up or captured, ``eager()`` is on: an entry point
 reached from inside (the frame of a fit step, the frames of a bench sweep)
 runs its eager body, and no capture nests in another.
@@ -57,6 +64,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.timing import span
 from .bwd_kernel import render_bwd
 from .fwd_kernel import render_fwd
 from .pack_kernel import pack_tables, pack_vjp
@@ -72,33 +80,46 @@ MAX_GRAPHS = 16
 MAX_GRAPH_BYTES = 8 << 30
 
 
-def _counters():
-    """(name, holder, field) of every launch counter of the wrappers."""
-    return ([("render_fwd", render_fwd.__dict__, "launches"),
-             ("render_fwd.save_aux", render_fwd.__dict__, "launches_save_aux"),
-             ("render_bwd", render_bwd.__dict__, "launches"),
-             ("pack_frame", pack_tables.__dict__, "launches"),
-             ("pack_vjp", pack_vjp.__dict__, "launches")]
-            + [(f"render_fwd.{k}", render_fwd.launches_by_variant, k)
-               for k in render_fwd.launches_by_variant]
-            + [(f"render_bwd.{k}", render_bwd.launches_by_placement, k)
-               for k in render_bwd.launches_by_placement])
+# (the breakdown dicts, their sizes, {name: (holder, field)}) of ``_counters``
+_TABLE = (None, None, 0, {})
+
+
+def _counters() -> dict:
+    """{name: (holder, field)} of every launch counter of the wrappers,
+    built once for each pair of breakdown dicts the wrappers hold."""
+    global _TABLE
+    variants, placements = render_fwd.launches_by_variant, render_bwd.launches_by_placement
+    size = len(variants) + len(placements)
+    if _TABLE[0] is not variants or _TABLE[1] is not placements or _TABLE[2] != size:
+        _TABLE = (variants, placements, size, {
+            "render_fwd": (render_fwd.__dict__, "launches"),
+            "render_fwd.save_aux": (render_fwd.__dict__, "launches_save_aux"),
+            "render_bwd": (render_bwd.__dict__, "launches"),
+            "pack_frame": (pack_tables.__dict__, "launches"),
+            "pack_vjp": (pack_vjp.__dict__, "launches"),
+            **{f"render_fwd.{k}": (variants, k) for k in variants},
+            **{f"render_bwd.{k}": (placements, k) for k in placements}})
+    return _TABLE[3]
 
 
 def launch_counts() -> dict:
     """The kernels' launch counters (``.launches`` and their breakdowns) by
     name."""
-    return {name: holder[field] for name, holder, field in _counters()}
+    return {name: holder[field] for name, (holder, field) in _counters().items()}
 
 
 def _restore(counts: dict) -> None:
-    for name, holder, field in _counters():
+    for name, (holder, field) in _counters().items():
         holder[field] = counts[name]
 
 
 def _add(counts: dict) -> None:
-    for name, holder, field in _counters():
-        holder[field] += counts.get(name, 0)
+    """Add ``counts`` (a graph's launches by name) to the counters."""
+    table = _counters()
+    for name, n in counts.items():
+        if name in table:
+            holder, field = table[name]
+            holder[field] += n
 
 
 _STATE = threading.local()
@@ -252,8 +273,9 @@ def capture(device, fn, pool=None) -> Captured:
 
 def replay(captured: Captured) -> None:
     """Launch the graph and add its launches to the counters."""
-    BACKEND.replay(captured.graph)
-    _add(captured.counts)
+    with span("trt.graph.replay"):
+        BACKEND.replay(captured.graph)
+        _add(captured.counts)
 
 
 def pool_of(captured: Captured):
@@ -275,13 +297,14 @@ class Graph:
     def load(self, inputs) -> None:
         """Copy the call's tensors into the static inputs."""
         if self.inputs:
-            with torch.no_grad():
+            with span("trt.graph.load"), torch.no_grad():
                 torch._foreach_copy_(self.inputs, list(inputs))
 
     def __call__(self, inputs):
         self.load(inputs)
         replay(self.captured)
-        return fresh(self.captured.outputs)
+        with span("trt.graph.fresh"):
+            return fresh(self.captured.outputs)
 
 
 class GraphCache:
@@ -351,20 +374,22 @@ class GraphCache:
         (``warmup``, its bytes measured by ``CudaGraphs.grown``) at its first
         use or where ``warm`` asks for one, or over the bound an eager call on
         the current stream, counted in ``over_bound``."""
-        if warm:
-            self.seen(key)
-            graph = None
-        else:
-            graph = self.lookup(key, make)
-            if graph is not None and current is not None and not current(graph):
-                graph = self.recapture(key, make)
+        with span("trt.graph.lookup"):
+            if warm:
+                self.seen(key)
+                graph = None
+            else:
+                graph = self.lookup(key, make)
+                if graph is not None and current is not None and not current(graph):
+                    graph = self.recapture(key, make)
         if graph is not None:
             return graph(*args)
         if key in self._entries and self._over(key):
             self.over_bound += 1
-            with eager():
+            with span("trt.graph.eager"), eager():
                 return fn()
-        out, nbytes = BACKEND.grown(device, lambda: warmup(device, fn))
+        with span("trt.graph.warmup"):
+            out, nbytes = BACKEND.grown(device, lambda: warmup(device, fn))
         if key in self._entries:
             self._entries[key][1] = nbytes
         return out
@@ -383,7 +408,8 @@ class GraphCache:
         entry[0] = None  # drop the old graph before the new one's pool
         self._make_room(entry[1] or 0)
         t0 = time.perf_counter()
-        graph = make()
+        with span("trt.graph.capture"):
+            graph = make()
         self.capture_s.append(time.perf_counter() - t0)
         self.captures += 1
         entry[1] = getattr(graph, "nbytes", entry[1])

@@ -42,6 +42,10 @@ backward graph; so does ``PipelineGradRender``, whose backward graph holds
 the pipeline's recompute. ``pack_frame`` is split for it into a host half
 (``_host_half``: the statics and slot tables, memoised) and ``_pack``,
 device operations only.
+
+While a torch profiler runs, a frame shows as the span ``trt.frame``, its
+host half and key as ``trt.frame.key``, a memo miss as ``trt.memo``, and
+the graphs' steps as ``render/graphs.py``'s spans.
 """
 
 from __future__ import annotations
@@ -54,6 +58,7 @@ import torch
 
 from ..models.scene import Scene
 from ..ops import camera as camera_ops
+from ..utils.timing import span
 from . import graphs, pipeline
 from .bwd_kernel import render_bwd, split_grad
 from .fwd_kernel import MAX_AUX_LIGHTS, QUAD_START, render_fwd
@@ -111,7 +116,8 @@ def _memo(t: torch.Tensor, fn):
     entry = _MEMO.get(key)
     if entry is not None and entry[0]() is t:
         return graphs.hold(entry[1])
-    value = fn(t)
+    with span("trt.memo"):
+        value = fn(t)
     if len(_MEMO) > 64:
         _MEMO.clear()
     _MEMO[key] = (weakref.ref(t), value)
@@ -397,17 +403,19 @@ class _GradFrame:
         return _GraphedRender.apply(self, *inputs)
 
     def forward(self, inputs, token) -> None:
-        with torch.no_grad():
+        with span("trt.graph.load"), torch.no_grad():
             torch._foreach_copy_(self.inputs, list(inputs))
         graphs.replay(self.fwd)
         self.current = token
 
     def backward(self, grad_image) -> list:
-        self.grad_image.copy_(grad_image)
+        with span("trt.graph.load"):
+            self.grad_image.copy_(grad_image)
         graphs.replay(self.bwd)
         grads = [None] * len(self.inputs)
-        for i, g in zip(self.wanted, self.bwd.outputs):
-            grads[i] = None if g is None else g.clone()
+        with span("trt.graph.fresh"):
+            for i, g in zip(self.wanted, self.bwd.outputs):
+                grads[i] = None if g is None else g.clone()
         return grads
 
 
@@ -422,7 +430,8 @@ class _GraphedRender(torch.autograd.Function):
         ctx.entry, ctx.token = entry, object()
         ctx.inputs, ctx.versions = inputs, [t._version for t in inputs]
         entry.forward(inputs, ctx.token)
-        return entry.image.clone()
+        with span("trt.graph.fresh"):
+            return entry.image.clone()
 
     @staticmethod
     def backward(ctx, grad_image):
@@ -451,9 +460,10 @@ def _render_rows_graphed(scene: Scene, camera: camera_ops.Camera, row0: int, row
                          polish_iters: int, bounces, shadow_iters, wants_grad: bool):
     """``_render_rows_eager`` as a replayed CUDA graph of the frame's key
     (``_frame_key``, ``graphs.GraphCache``)."""
-    host = _host_half(scene, polish_iters, bounces, shadow_iters)
-    key = _frame_key(scene, camera, row0, rows, polish_iters, host["bounces"],
-                     host["shadow_iters"], wants_grad)
+    with span("trt.frame.key"):
+        host = _host_half(scene, polish_iters, bounces, shadow_iters)
+        key = _frame_key(scene, camera, row0, rows, polish_iters, host["bounces"],
+                         host["shadow_iters"], wants_grad)
 
     def body(*tensors):
         s, c = _with_tensors(dataclasses.replace(scene, light_is_spherical=tensors[-1]),
@@ -566,10 +576,11 @@ def render_image_kernel(scene: Scene, camera: camera_ops.Camera | None = None,
     Newton steps of the shadow-occlusion solves, clamped to
     [1, polish_iters]; the default 1 is the Pallas kernel's.
     """
-    if camera is None:
-        camera = camera_ops.Camera.initial(torch.float32, scene.coefs.device)
-    if _wants_grad(scene, camera) and not _fused_backward_encodes(scene):
-        return _pipeline_grad_frame(scene, camera, polish_iters, bounces, shadow_iters)
-    return render_rows_kernel(scene, camera, 0, scene.height,
-                              polish_iters=polish_iters, bounces=bounces,
-                              shadow_iters=shadow_iters)
+    with span("trt.frame"):
+        if camera is None:
+            camera = camera_ops.Camera.initial(torch.float32, scene.coefs.device)
+        if _wants_grad(scene, camera) and not _fused_backward_encodes(scene):
+            return _pipeline_grad_frame(scene, camera, polish_iters, bounces, shadow_iters)
+        return render_rows_kernel(scene, camera, 0, scene.height,
+                                  polish_iters=polish_iters, bounces=bounces,
+                                  shadow_iters=shadow_iters)

@@ -6,11 +6,30 @@ Reproduces the reference's observability surface: per-frame render time and
 a once-per-second ``FPS: %.4lf, last render time: %.4f ms`` stdout line
 (reference: src/ray-tracer.cpp:236-242), extended with a Mrays/s counter
 (the benchmark metric, BASELINE.md).
+
+``span(name)`` names a stretch of the port's host path (``trt.frame``,
+``trt.graph.replay``, ...) on a running ``torch.profiler``'s timeline, where
+the device's kernels and copies lie too; with no profiler running it costs a
+call and one test.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
+
+import torch
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``torch.profiler.record_function`` range named ``name`` while a
+    torch profiler runs, else a shared no-op context. A span adds no device
+    work, so a CUDA graph captured inside one is the same graph."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 class FrameTimer:
