@@ -9,8 +9,8 @@ result line):
 1. device: require CUDA; print the card's name and power limit, torch,
    CUDA and nvcc versions;
 2. build: compile every kernel of the path from csrc/ (render_fwd.cu,
-   render_bwd.cu, pack.cu), one nvcc per source, all started together
-   (timed as set-up);
+   render_bwd.cu, pack.cu, select_rows.cu), one nvcc per source, all
+   started together (timed as set-up);
 3. main path: load scenes/dingdong.yml (onto the card, the loader's
    default) and render it at 1280x720 from the reference pose through
    ``render_image_kernel``, with every launch count set to 0 just before and
@@ -41,6 +41,17 @@ result line):
    the parent's PARENT_FRAME_OPS); the frames and the fit step that the
    packing speeds up are timed by 9e (the graphed calls and fit step) and
    11 (the bench's dingdong stages);
+5c. the backward of the pipeline's per-object gather (``select_rows_bwd``,
+   csrc/select_rows.cu) at clebsch 800x600's two soft row blocks (598,400
+   and 361,600 rows of 20 f32 into one object), the count set to 0 just
+   before: a gradient of ones gives each entry its row count exactly;
+   integers in [-8, 8] give the float64 ``index_add_`` bit for bit (every
+   partial sum is an integer under 2**24); normal values lie within the
+   card test's rounding limit of the float64 sum, with aten's serial
+   ``index_put_`` (autograd's own backward of ``table[idx]``) read beside
+   it, and a second call gives the same bits; then the kernel timed alone
+   (device-only), its plain version (each object's rows masked and summed)
+   and aten's ``index_put_`` beside its bytes' bound;
 6. timing: CUDA events over 32 frames of dingdong 1280x720 at yaws
    90 + 1e-3 k after warm-up (the kernel alone as device time of its
    launches run back to back, proven by ``timed_ms``'s gate; the whole call
@@ -86,8 +97,10 @@ result line):
 8c. the gradient fallback: a 33-light and a 0-object scene built with the
    port's builders through ``render_image_kernel`` and ``backward()``, the
    counts set to 0 just before: one render_fwd launch (main), no
-   render_bwd; the gradients equal the pipeline's own autograd (rtol 1e-5
-   light_color, 1e-4 coefs; zero for the 0-object lights);
+   render_bwd, and ``select_rows`` launches for the coefficients' gradient
+   (33 lights) and none without it (0 objects); the gradients equal the
+   pipeline's own autograd (rtol 1e-5 light_color, 1e-4 coefs; zero for
+   the 0-object lights);
 8d. the pipeline's fwd+bwd on dingdong 1280x720 at pitch 5 against K2's
    gradient from 7a under tests/test_pallas.py:174-181's rule, logged per
    group over the frame; every group finite, and within the rule over the
@@ -105,8 +118,10 @@ result line):
 9b. the BASELINE.json inverse configuration: clebsch 800x600, coefs and
    light colours perturbed by 0.6, 5 steps through the kernels and 3 with
    the soft loss (tau 0.15) through the pipeline by row blocks (a warm-up,
-   a capture and a replay of the step's graph; no kernel launch); the loss
-   falls on both routes; each step's time and the peak device memory;
+   a capture and a replay of the step's graph; no render_fwd, render_bwd or
+   packing launch, and one ``select_rows`` launch a row block, 2 a step, for
+   the coefficients' gradient; the kernel route none); the loss falls on
+   both routes; each step's time and the peak device memory;
 9c. ``render_rays_soft`` at tau 1e-4 against the hard pipeline frame on
    clebsch and quadratic at full size: under 2% of pixels apart by more
    than 2/255 (tests/test_soft.py:36-59's rule);
@@ -142,7 +157,9 @@ result line):
    steps by ``tau_schedule`` and (b) the hard pipeline route on dingdong
    (``backend="torch"``, light colours x0.6, polish 2), each 5 graphed steps
    giving the losses and parameters of 5 eager steps with the same
-   capturable Adam, bit for bit, through one capture and no kernel launch;
+   capturable Adam, bit for bit, through one capture and no render_fwd,
+   render_bwd or pack_vjp launch; (a) one ``select_rows`` launch a row
+   block a step, eager and graphed alike, (b) none;
    (c) ``render_image`` FAST on dingdong, reflection_test, clebsch and
    cayley and GOLDEN on dingdong and reflection_test, each captured at its
    second call and replayed at two further poses, bitwise the eager frame
@@ -200,9 +217,11 @@ a frame's backward (the bench's kernel readings call render_bwd alone).
 The last lines are the card's name and power limit, a {"kernels": [...]}
 line (each kernel's launches on the main paths, 9e's, 9f's, the sharded ones of
 10a and of both ranks of 10b and the bench's of 11 included, its time, its plain
-version's, its bound and share of the bound on dingdong 1280x720; no single
-PyTorch call computes any of the four functions, so ``library_ms`` is null),
-and {"ok": true, "device": {...}}.
+version's, its bound and share of the bound on dingdong 1280x720, and
+``select_rows``' at clebsch's soft row blocks: its launches in 5c, 8c, 9b and
+9f; no single PyTorch call computes K1, K2 or the packing, so their
+``library_ms`` is null, and ``select_rows``' is aten's ``index_put_``), and
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -232,9 +251,13 @@ GATE_FRAMES = 256      # 6: the long sweep of the device-only reading's check
 GATE_RTOL = 0.02       # 6: each of its four readings against the quiet 32-frame one
 K2_LONG_SWEEP = 128    # 7e: the bench's sweep at TRT_BENCH_FRAMES=128
 PLAIN_FRAMES = 3
-KERNELS = ("render_fwd", "render_bwd", "pack")
+KERNELS = ("render_fwd", "render_bwd", "pack", "select_rows")
 PACK_VJP_RTOL = 1e-5   # 5b: d yaw, d pitch, kernel against plain, relative
-PACK_TIMED_CALLS = 256  # 5b: each packing kernel timed alone
+PACK_TIMED_CALLS = 256  # 5b: each packing kernel timed alone; 5c: select_rows_bwd
+# 5c: clebsch 800x600's two soft row blocks (Loss.block_rows 374 of 600 rows,
+# then 226), each of 800 rays and both branches
+SELECT_ROWS = (2 * 374 * 800, 2 * 226 * 800)
+SELECT_PLAIN_CALLS = 3  # 5c: the plain version and aten's index_put_, timed
 # 5b: device ops a frame of the bench's dingdong sweep graphs on the parent
 # (19626a1), PERF.md's step-1 profile (frame_profile, NVIDIA H100 80GB HBM3,
 # 700.00 W)
@@ -462,6 +485,85 @@ def pack_phase(scenes: dict, camera, dev, smi: str) -> dict:
     return out
 
 
+def select_phase(dev, smi: str) -> dict:
+    """Phase 5c (see the module's docstring); returns the gather's backward
+    kernels' worst errors, their time at each of clebsch's soft row blocks,
+    their plain version's, aten's and the bound."""
+    import torch
+
+    from tpu_ray_tracer_torch.kernel_bench import timed_ms
+    from tpu_ray_tracer_torch.render import bounds
+    from tpu_ray_tracer_torch.render.select_kernel import select_plan, select_rows_bwd
+
+    n, c = 1, 20  # clebsch's one object, its 20 coefficients
+    g = torch.Generator(device=dev).manual_seed(18)
+    out = {"rel_err": 0.0, "rel_err_aten": 0.0, "blocks": {}}
+    for rows in SELECT_ROWS:
+        idx = torch.zeros(rows, dtype=torch.int64, device=dev)  # every ray on the object
+        shape = (n, c)
+
+        def f64_sum(values):
+            return torch.zeros(shape, dtype=torch.float64, device=dev).index_add_(
+                0, idx, values.double())
+
+        # a gradient of ones: each entry is the object's row count, exactly
+        counts = select_rows_bwd(torch.ones((rows, c), device=dev), idx, shape)
+        # integers in [-8, 8]: every partial sum is an integer under 2**24,
+        # exact in f32 in any order, so the kernel equals the f64 sum bit for bit
+        ints = torch.randint(-8, 9, (rows, c), generator=g, device=dev).float()
+        int_sum = select_rows_bwd(ints, idx, shape)
+        if not bool((counts == rows).all()) or not torch.equal(int_sum.double(), f64_sum(ints)):
+            raise RuntimeError(f"select_rows_bwd {rows} rows: counts {counts.flatten().tolist()} "
+                               f"(want {rows}), or the integer gradient's sum differs from the "
+                               f"f64 sum by {float((int_sum.double() - f64_sum(ints)).abs().max())}")
+        # normal values against the f64 sum and against autograd's own
+        # backward of table[idx] (aten's index_put_(accumulate=True)); the
+        # limit is the test's: the sum of |rows| times the unit roundoff
+        # times the longest chain of additions in the kernel's order
+        grad = torch.randn((rows, c), generator=g, device=dev)
+        got = select_rows_bwd(grad, idx, shape)
+        if not torch.equal(select_rows_bwd(grad, idx, shape), got):
+            raise RuntimeError(f"select_rows_bwd {rows} rows: a second call gave other bits")
+        table = torch.zeros(shape, device=dev, requires_grad=True)
+        (aten,) = torch.autograd.grad(table[idx], table, grad)
+        want, abs_sum = f64_sum(grad), f64_sum(grad.abs())
+        placement, blocks, _ = select_plan(rows, n, c, grad.dtype)
+        depth = -(-rows // (blocks * 8)) + 1 + 8 * 32 + -(-blocks // 256) + 8
+        tol = depth * torch.finfo(torch.float32).eps / 2 * abs_sum
+        err, err_aten = (got.double() - want).abs(), (aten.double() - want).abs()
+        rel, rel_aten = float((err / abs_sum).max()), float((err_aten / abs_sum).max())
+        out["rel_err"], out["rel_err_aten"] = (max(out["rel_err"], rel),
+                                               max(out["rel_err_aten"], rel_aten))
+        if not bool((err <= tol).all()):
+            raise RuntimeError(f"select_rows_bwd {rows} rows: {float((err / tol).max()):.3g} "
+                               f"times its limit from the f64 sum")
+
+        def plain(k):  # plain PyTorch in a fixed order: the object's rows masked and summed
+            return torch.stack([torch.where((idx == j)[:, None], grad, 0.0).sum(0)
+                                for j in range(n)])
+
+        ms = timed_ms(lambda k: select_rows_bwd(grad, idx, shape), PACK_TIMED_CALLS,
+                      device_only=True)
+        plain(0)
+        plain_ms = timed_ms(plain, SELECT_PLAIN_CALLS)
+        zero = torch.zeros(shape, device=dev)
+        library_ms = timed_ms(lambda k: zero.index_put_((idx,), grad, accumulate=True),
+                              SELECT_PLAIN_CALLS)
+        n_bytes = rows * (c * 4 + 8) + n * c * 4
+        bound, by = bounds.bound_ms(rows * c, n_bytes)
+        out["blocks"][rows] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                               "bound_ms": bound, "bound_by": by, "bytes": n_bytes,
+                               "placement": placement, "grid": blocks}
+        log(f"[select] select_rows_bwd, clebsch's soft row block: {rows} rows of {c} f32 into "
+            f"{n} object ({placement}, {blocks} blocks): counts exact, integer sums equal the f64 "
+            f"sum, normal values {rel:.3e} of the |rows| sum from the f64 sum (aten's serial "
+            f"index_put_ {rel_aten:.3e}); kernel {ms * 1e3:.3f} us a call (device-only, "
+            f"{PACK_TIMED_CALLS} calls), plain version {plain_ms:.4f} ms, aten's index_put_ "
+            f"{library_ms:.4f} ms (CUDA events with the host's gaps); bound {bound * 1e3:.3f} us "
+            f"({by}: {n_bytes} bytes), share {bound / ms:.3f} ({smi})")
+    return out
+
+
 def _camera_f64(cam):
     """``cam`` with f64 tensors."""
     import torch
@@ -489,6 +591,7 @@ def main() -> int:
     from tpu_ray_tracer_torch.render.fwd_kernel import render_fwd, render_fwd_plain
     from tpu_ray_tracer_torch.render.kernel_backend import pack_frame
     from tpu_ray_tracer_torch.render.pack_kernel import pack_tables, pack_vjp
+    from tpu_ray_tracer_torch.render.select_kernel import select_rows
 
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
@@ -526,7 +629,7 @@ def main() -> int:
     # --- 3. main path: dingdong 1280x720, reference pose ---
     def zero_counts():
         render_fwd.launches = render_fwd.launches_save_aux = render_bwd.launches = 0
-        pack_tables.launches = pack_vjp.launches = 0
+        pack_tables.launches = pack_vjp.launches = select_rows.launches = 0
         for counts in (render_fwd.launches_by_variant, render_bwd.launches_by_placement):
             for key in counts:
                 counts[key] = 0
@@ -595,6 +698,11 @@ def main() -> int:
 
     # --- 5b. the packing kernels against their plain versions ---
     pack = pack_phase(scenes, camera, dev, smi)
+
+    # --- 5c. the pipeline gather's backward kernels at clebsch's soft row blocks ---
+    zero_counts()
+    select = select_phase(dev, smi)
+    select_by_path = {"vs_f64": select_rows.launches}
 
     # --- 6. timing (dingdong 1280x720, the JAX bench's yaw sweep) ---
     n_px = ding.width * ding.height
@@ -944,21 +1052,26 @@ def main() -> int:
                 for f, leaf in leaves.items()}
 
     fallback_launches = 0
+    select_by_path["fallback"] = 0
     for label, scene, fields in (("33 lights", many, ("light_color", "coefs")),
                                  ("0 objects", empty, ("light_color", "bg_color"))):
         zero_counts()
         got = fallback_grads(scene, fields)
         torch.cuda.synchronize()
         launches = {"render_fwd": render_fwd.launches, "render_bwd": render_bwd.launches,
-                    "pack_frame": pack_tables.launches, "pack_vjp": pack_vjp.launches}
+                    "pack_frame": pack_tables.launches, "pack_vjp": pack_vjp.launches,
+                    "select_rows": select_rows.launches}
         variants = {k: v for k, v in render_fwd.launches_by_variant.items() if v}
         fallback_launches += render_fwd.launches
+        select_by_path["fallback"] += select_rows.launches
         ref = fallback_grads(scene, fields, fallback=False)
         log(f"[fallback] {label} 640x480 loss.backward(): launches {launches} {variants}")
-        if launches != {"render_fwd": 1, "render_bwd": 0, "pack_frame": 1,
-                        "pack_vjp": 0} or variants != {"main": 1}:
+        if {k: v for k, v in launches.items() if k != "select_rows"} != {
+                "render_fwd": 1, "render_bwd": 0, "pack_frame": 1, "pack_vjp": 0} or variants != {
+                "main": 1} or (select_rows.launches > 0) != (label == "33 lights"):
             raise RuntimeError(f"fallback {label}: expected one render_fwd (main) and one "
-                               f"pack_frame, no render_bwd or pack_vjp; got {launches}")
+                               f"pack_frame, no render_bwd or pack_vjp, and select_rows for the "
+                               f"coefficients' gradient alone; got {launches}")
         for f in fields:
             g, r = got[f], ref[f]
             rtol = 1e-4 if f == "coefs" else 1e-5
@@ -1164,13 +1277,17 @@ def main() -> int:
         zero_counts()
         losses, times, peak = fit_steps(problem, target, steps)
         launches = (render_fwd.launches_save_aux, render_bwd.launches, pack_tables.launches,
-                    pack_vjp.launches)
+                    pack_vjp.launches, select_rows.launches)
         baseline_steps[label] = float(np.median(times))
         log(f"[fit] clebsch 800x600 coefs+light_color, {label} ({loss_fn.block_rows} rows a "
             f"block): losses {losses}, step ms {', '.join(f'{t:.4f}' for t in times)}, peak "
-            f"{peak:.3f} GiB, kernel launches (fwd with aux, bwd, pack_frame, pack_vjp) "
-            f"{launches} ({smi})")
-        want = (steps,) * 4 if backend == "kernel" else (0,) * 4
+            f"{peak:.3f} GiB, kernel launches (fwd with aux, bwd, pack_frame, pack_vjp, "
+            f"select_rows) {launches} ({smi})")
+        # the soft route: one select_rows launch a row block, for the coefficients' gather
+        row_blocks = -(-clebsch.height // loss_fn.block_rows)
+        want = (steps,) * 4 + (0,) if backend == "kernel" else (0,) * 4 + (row_blocks * steps,)
+        if backend != "kernel":
+            select_by_path["fit_soft"] = select_rows.launches
         if launches != want or not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
             raise RuntimeError(f"baseline fit {label}: launches {launches} (want {want}) or the "
                                f"loss did not fall: {losses}")
@@ -1544,21 +1661,33 @@ def main() -> int:
                  fit_case(ding, ["light_color"], "torch"), [None] * FIT_STEPS)):
             if inverse.make_loss_fn(problem).use_kernel:
                 raise RuntimeError(f"pipeline graphs fit {label}: not the pipeline route")
-            before = (render_fwd.launches_save_aux, render_bwd.launches, pack_vjp.launches)
+            loss_fn = inverse.make_loss_fn(problem)
+            # one select_rows launch a row block where the coefficients are fitted
+            gathers = (-(-problem.scene_template.height // loss_fn.block_rows) * FIT_STEPS
+                       if "coefs" in problem.param_fields else 0)
+            before = (render_fwd.launches_save_aux, render_bwd.launches, pack_vjp.launches,
+                      select_rows.launches)
             want, want_params, _ = pipeline_fit(problem, target, True, taus)
+            eager_gathers = select_rows.launches - before[3]
             losses, params, cache = pipeline_fit(problem, target, False, taus)
             launched = (render_fwd.launches_save_aux - before[0], render_bwd.launches - before[1],
                         pack_vjp.launches - before[2])
+            graphed_gathers = select_rows.launches - before[3] - eager_gathers
             differ = [k for k in params if not torch.equal(params[k], want_params[k])]
             log(f"[pipeline-graphs] fit {label}: {FIT_STEPS} graphed steps, losses {losses}, "
                 f"eager {want}; {cache.captures} captures "
                 f"({', '.join(f'{t * 1e3:.1f}' for t in cache.capture_s)} ms), the graph keeps "
-                f"{cache.bytes() / 2**30:.3f} GiB, {cache.over_bound} calls over the byte bound "
-                f"({smi})")
-            if losses != want or differ or cache.captures != 1 or launched != (0, 0, 0):
+                f"{cache.bytes() / 2**30:.3f} GiB, {cache.over_bound} calls over the byte bound; "
+                f"select_rows launches eager {eager_gathers}, graphed {graphed_gathers} (want "
+                f"{gathers} each) ({smi})")
+            if (losses != want or differ or cache.captures != 1 or launched != (0, 0, 0)
+                    or (eager_gathers, graphed_gathers) != (gathers, gathers)):
                 raise RuntimeError(f"pipeline graphs fit {label}: the graphed steps differ from "
                                    f"the eager ones (params {differ}), {cache.captures} "
-                                   f"captures, kernel launches {launched}")
+                                   f"captures, kernel launches {launched}, select_rows "
+                                   f"{(eager_gathers, graphed_gathers)} (want {gathers} each)")
+            select_by_path["pipeline_graphs"] = (select_by_path.get("pipeline_graphs", 0)
+                                                 + eager_gathers + graphed_gathers)
 
         # (c) pipeline frames: each key captured at its second call (the
         # reference pose) and replayed at two further poses, bitwise the eager
@@ -1960,6 +2089,24 @@ def main() -> int:
         **{k: pack["pack_vjp"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
         "share_of_bound": pack["pack_vjp"]["bound_ms"] / pack["pack_vjp"]["ms"],
         "frame_ms_fwd_bwd_dingdong": aux["frame_ms_fwd_bwd_dingdong"],
+    }, {
+        "name": "select_rows",
+        "route": "cuda",
+        "source": "tpu_ray_tracer_torch/csrc/select_rows.cu",
+        "replaces": "tpu_ray_tracer/render/pipeline.py:93, :95, :150, :187 (the scatter-add XLA "
+                    "emits for the transpose of the pipeline's gathers; not a Pallas kernel)",
+        "launches": sum(select_by_path.values()),
+        "launches_by_path": select_by_path,
+        "relerr_vs_f64": select["rel_err"],
+        "relerr_vs_f64_aten": select["rel_err_aten"],
+        # clebsch 800x600's first soft row block; the second beside it
+        **{k: select["blocks"][SELECT_ROWS[0]][k]
+           for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "library": "aten index_put_(accumulate=True), autograd's backward of table[idx]",
+        "share_of_bound": (select["blocks"][SELECT_ROWS[0]]["bound_ms"]
+                           / select["blocks"][SELECT_ROWS[0]]["ms"]),
+        "rows": SELECT_ROWS[0],
+        "second_block": {"rows": SELECT_ROWS[1], **select["blocks"][SELECT_ROWS[1]]},
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -697,6 +697,107 @@ def test_soft_render_on_card_matches_cpu(cuda):
         assert np.abs(got - ref).max() / scale < tol
 
 
+# --- the pipeline's per-object gather: select_rows' backward kernels ---
+
+SELECT_CASES = {  # rows, objects, values a row, dtype, the plan's placement
+    "clebsch": (2 * 374 * 800, 1, 20, torch.float32, "shared"),  # a soft row block, one object
+    "21_objects": (2 * 48 * 640, 21, 3, torch.float32, "shared"),  # 10 lane groups a warp
+    "global": (100_000, 200, 20, torch.float32, "global"),  # the warp sums past shared memory
+    "golden": (64 * 48, 3, 20, torch.float64, "shared"),
+}
+
+
+@pytest.mark.parametrize("case", list(SELECT_CASES))
+def test_select_rows_bwd_matches_index_add(cuda, case):
+    """The backward's kernels against a float64 ``index_add_`` on the card,
+    and the same bits from a second call. The tolerance of each entry is
+    its sum of |rows| times the unit roundoff of the dtype times a bound on
+    the longest chain of additions in the kernel's order: a lane's rows (at
+    most its block's over 8 warps), its block's warp copies (at most 8
+    warps of 32 lane groups), a reduce thread's columns and the reduce's 8
+    halvings (for f64 also the reference's own serial chain of rows)."""
+    import math
+
+    from tpu_ray_tracer_torch.render.select_kernel import select_plan, select_rows_bwd
+
+    rows, n, c, dtype, placement = SELECT_CASES[case]
+    g = torch.Generator(device=cuda).manual_seed(1800 + n)
+    grad = torch.randn((rows, c), generator=g, dtype=dtype, device=cuda)
+    idx = torch.randint(0, n, (rows,), generator=g, device=cuda)
+    got = select_rows_bwd(grad, idx, (n, c))
+    again = select_rows_bwd(grad, idx, (n, c))
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    where, blocks, _ = select_plan(rows, n, c, dtype)
+    assert where == placement
+    zero = torch.zeros((n, c), dtype=torch.float64, device=cuda)
+    want = zero.index_add(0, idx, grad.double())
+    abs_sum = zero.index_add(0, idx, grad.double().abs())
+    depth = (math.ceil(rows / blocks / 8) + 1 + 8 * 32 + math.ceil(blocks / 256) + 8
+             + (rows if dtype == torch.float64 else 0))
+    tol = depth * torch.finfo(dtype).eps / 2 * abs_sum
+    assert ((got.double() - want).abs() <= tol).all(), float(((got.double() - want).abs()
+                                                              / tol).max())
+
+
+@pytest.mark.parametrize("rows", [2 * 374 * 800, 2 * 226 * 800], ids=["block_374", "block_226"])
+def test_select_rows_bwd_exact_at_clebsch_row_blocks(cuda, rows):
+    """clebsch 800x600's two soft row blocks (374 and 226 rows of 800 rays,
+    both branches), every row on its one object: a gradient of ones sums to
+    the row count in every entry, and integers in [-8, 8] to the float64
+    sum, exactly (every partial sum is an integer under 2**24, which f32
+    holds in any order). A row dropped or counted twice fails."""
+    from tpu_ray_tracer_torch.render.select_kernel import select_rows_bwd
+
+    idx = torch.zeros(rows, dtype=torch.int64, device=cuda)
+    counts = select_rows_bwd(torch.ones((rows, 20), device=cuda), idx, (1, 20))
+    assert bool((counts == rows).all()), counts
+    g = torch.Generator(device=cuda).manual_seed(rows)
+    ints = torch.randint(-8, 9, (rows, 20), generator=g, device=cuda).float()
+    want = torch.zeros((1, 20), dtype=torch.float64, device=cuda).index_add_(0, idx, ints.double())
+    assert torch.equal(select_rows_bwd(ints, idx, (1, 20)).double(), want)
+
+
+@pytest.mark.parametrize("idx_kind", ["n", "2xn", "one_object"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("c", [20, 3, 1])
+@pytest.mark.parametrize("n", [1, 3, 21])
+def test_select_rows_on_card_matches_indexing(cuda, n, c, dtype, idx_kind):
+    """``select_rows`` on a CUDA table that requires grad: the forward is
+    ``table[idx]`` bit for bit, and with an integer cotangent (whose sums
+    are exact in any order) the kernel's gradient equals autograd's own
+    through ``table[idx]`` bit for bit, in one ``select_rows`` launch;
+    without a gradient, or on the CPU, it launches nothing. C = 1 is the
+    reflection ratios' [N] table; idx of shape [n], [2, n], or [2, n] with
+    every row on one object."""
+    from tpu_ray_tracer_torch.render.select_kernel import select_rows
+
+    g = torch.Generator(device=cuda).manual_seed(n * 100 + c)
+    shape = (n,) if c == 1 else (n, c)
+    idx_shape = (37,) if idx_kind == "n" else (2, 37)
+    table = torch.randn(shape, generator=g, dtype=dtype, device=cuda)
+    idx = (torch.zeros(idx_shape, dtype=torch.int64, device=cuda) if idx_kind == "one_object"
+           else torch.randint(0, n, idx_shape, generator=g, device=cuda))
+    cotangent = torch.randint(-8, 9, idx_shape + shape[1:], generator=g, device=cuda).to(dtype)
+    leaf, want_leaf = table.clone().requires_grad_(), table.clone().requires_grad_()
+    before = select_rows.launches
+    out = select_rows(leaf, idx)
+    out.backward(cotangent)
+    want = want_leaf[idx]
+    want.backward(cotangent)
+    torch.cuda.synchronize()
+    assert select_rows.launches == before + 1
+    assert out.dtype == dtype and torch.equal(out.detach(), want.detach())
+    assert leaf.grad.dtype == dtype and torch.equal(leaf.grad, want_leaf.grad)
+    if idx_kind == "one_object" and n > 1:
+        assert not leaf.grad[1:].any()
+    with torch.no_grad():
+        select_rows(leaf, idx)
+    cpu = table.cpu().requires_grad_()
+    select_rows(cpu, idx.cpu()).backward(cotangent.cpu())
+    assert select_rows.launches == before + 1
+
+
 def test_sharded_world_of_one_over_nccl(cuda, tmp_path):
     """``render_image_sharded`` over an NCCL process group of one rank
     (kernel route, one gather) equals the unsharded frame bit for bit, and
@@ -951,9 +1052,12 @@ def test_graphed_pipeline_fit_steps_equal_eager(cuda, case):
     """Five pipeline-route train steps through the step's graph (the soft
     loss annealed by ``tau_schedule``, or the hard pipeline) give the
     losses and parameters of five eager steps with the same capturable
-    Adam, bit for bit, through one capture and no kernel launch."""
+    Adam, bit for bit, through one capture, with no render_fwd or
+    render_bwd launch; the soft steps' coefficient gathers take their
+    gradient through one ``select_rows`` launch a step, in both."""
     from tpu_ray_tracer_torch.diff.inverse import extract_params, make_train_step, tau_schedule
     from tpu_ray_tracer_torch.render import graphs
+    from tpu_ray_tracer_torch.render.select_kernel import select_rows
 
     if case == "soft":
         fields, taus = ("coefs", "light_color"), tau_schedule(0.15, 0.05, 5)
@@ -971,10 +1075,15 @@ def test_graphed_pipeline_fit_steps_equal_eager(cuda, case):
             losses = [step(params, optimizer, cam, target, tau) for tau in taus]
         return losses, params, step
 
+    s0 = select_rows.launches
     want, want_params, _ = run(True)
-    a0, b0 = render_fwd.launches_save_aux, render_bwd.launches
+    # one row block a step, whose coefficient gather's backward is the kernel (soft)
+    gathers = 5 if case == "soft" else 0
+    assert select_rows.launches - s0 == gathers
+    a0, b0, s0 = render_fwd.launches_save_aux, render_bwd.launches, select_rows.launches
     losses, params, step = run(False)
     assert (render_fwd.launches_save_aux - a0, render_bwd.launches - b0) == (0, 0)
+    assert select_rows.launches - s0 == gathers
     assert step.graphs.captures == 1 and step.graphs.over_bound == 0
     assert losses == want
     assert all(torch.equal(params[k], want_params[k]) for k in fields)

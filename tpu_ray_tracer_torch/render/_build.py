@@ -58,6 +58,14 @@ _SIGNATURES = {
                          + [ctypes.c_int] * 3 + [ctypes.c_double, ctypes.c_void_p],
                          ctypes.c_int),
     },
+    "select_rows": {
+        # rows n c f64, out[3] (placement, blocks, values of scratch) -> CUDA error
+        "trt_select_rows_plan": ([ctypes.c_longlong] + [ctypes.c_int] * 3
+                                 + [ctypes.POINTER(ctypes.c_longlong)], ctypes.c_int),
+        # grad idx scratch out | rows | n c f64 placement blocks | stream
+        "trt_select_rows_bwd": ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 5
+                                + [ctypes.c_void_p], ctypes.c_int),
+    },
 }
 
 

@@ -68,6 +68,7 @@ from ..utils.timing import span
 from .bwd_kernel import render_bwd
 from .fwd_kernel import render_fwd
 from .pack_kernel import pack_tables, pack_vjp
+from .select_kernel import select_rows
 
 # Graphs a cache keeps (keys seen once included); the least recently used
 # goes first. Each keeps its private memory pool on the card (chip_smoke.py
@@ -97,6 +98,7 @@ def _counters() -> dict:
             "render_bwd": (render_bwd.__dict__, "launches"),
             "pack_frame": (pack_tables.__dict__, "launches"),
             "pack_vjp": (pack_vjp.__dict__, "launches"),
+            "select_rows": (select_rows.__dict__, "launches"),
             **{f"render_fwd.{k}": (variants, k) for k in variants},
             **{f"render_bwd.{k}": (placements, k) for k in placements}})
     return _TABLE[3]

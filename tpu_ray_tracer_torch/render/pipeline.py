@@ -20,6 +20,10 @@ Structure per ray (reference: update-cpu.cpp:82-119):
    a masked loop: every lane advances in lockstep, with an active mask
    replacing ``break``.
 
+The per-ray gathers of per-object rows (coefficients, colours, reflection
+ratios) go through ``select_kernel.select_rows``: ``table[idx]``, whose
+gradient on the card is summed by a deterministic kernel.
+
 Visibility booleans are non-differentiable by construction (comparisons),
 and the occlusion solve runs on detached tensors, so the backward pass skips
 it entirely. Eager torch materialises every intermediate that XLA would
@@ -47,6 +51,7 @@ from ..ops.intersect import intersect_all, occluder_mask, valid_hit_mask
 from ..ops.poly import normal_vector
 from ..ops.shading import reflect_ray, shadow_ray_dirs, surface_color
 from . import graphs
+from .select_kernel import select_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,9 +109,9 @@ def shade_roots(scene: Scene, origin, dir, t_all, polish_iters: int) -> TraceRes
     best_t = torch.where(hit, best_t, torch.zeros_like(best_t))
 
     point = origin + best_t[..., None] * dir
-    sel_coefs = scene.coefs[idx]                                     # [..., 20]
+    sel_coefs = select_rows(scene.coefs, idx)                        # [..., 20]
     normal = normal_vector(sel_coefs, point)
-    obj_color = scene.colors[idx]                                    # [..., 3]
+    obj_color = select_rows(scene.colors, idx)                       # [..., 3]
 
     # Shadows: occlusion is non-differentiable visibility; detaching its
     # inputs prunes the (expensive) backward intersect entirely.
@@ -160,7 +165,7 @@ def render_rays(scene: Scene, origin, dir, *, polish_iters: int, bounces: int):
     ratio = torch.ones(res.hit.shape, dtype=torch.float32, device=res.hit.device)
     active, idx, point, normal, cur_dir = res.hit, res.idx, res.point, res.normal, dir
     for _ in range(bounces):
-        r = refl[idx]
+        r = select_rows(refl, idx)
         enter = active & (r > EPS)
         ratio = torch.where(enter, ratio * r, ratio)
 
@@ -180,7 +185,7 @@ def render_rays(scene: Scene, origin, dir, *, polish_iters: int, bounces: int):
 
     # At-cap blend: lanes still wanting to reflect absorb the background
     # (reference: update-cpu.cpp:98-101).
-    r = refl[idx]
+    r = select_rows(refl, idx)
     enter = active & (r > EPS)
     return torch.where(enter[..., None], _blend(result, bg, ratio * r), result)
 
