@@ -798,7 +798,11 @@ def main() -> int:
     for name in ("dingdong", "reflection_test", "20spheres"):
         scene = scenes[name]
         args, bkw, _ = bwd_case(scene, camera(pitch=5.0))
+        before = dict(render_bwd.launches_by_placement)
         k_vec = render_bwd(*args, **bkw)
+        layout = [k for k, v in render_bwd.launches_by_placement.items() if v != before[k]]
+        if name == "20spheres" and layout != ["light_columns.shared"]:
+            raise RuntimeError(f"bwd {name}: launched under {layout}, not light_columns.shared")
         p_vec = render_bwd_plain(*args, **bkw)
         if not torch.isfinite(k_vec).all():
             raise RuntimeError(f"bwd vs plain {name}: non-finite kernel gradient")
@@ -810,8 +814,8 @@ def main() -> int:
             bwd_worst_rel = max(bwd_worst_rel, rel)
             if rel >= tol:
                 raise RuntimeError(f"bwd vs plain {name} {group}: relerr {rel} >= {tol}")
-        log(f"[bwd-vs-plain] {name} {scene.width}x{scene.height} bounces={bkw['bounces']}: "
-            + ", ".join(report))
+        log(f"[bwd-vs-plain] {name} {scene.width}x{scene.height} bounces={bkw['bounces']} "
+            f"({layout[0]}): " + ", ".join(report))
 
         # --- 7c. determinism ---
         if not torch.equal(render_bwd(*args, **bkw), k_vec):

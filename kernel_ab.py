@@ -221,7 +221,7 @@ class BwdLib:
         if fr.name not in self.plans:
             kw = fr.kw
             if self.current:
-                out = (ctypes.c_longlong * 3)()
+                out = (ctypes.c_longlong * 4)()
                 self.lib.trt_render_bwd_plan.argtypes = [_INT] * 5 + [
                     ctypes.POINTER(ctypes.c_longlong)]
                 self.lib.trt_render_bwd_plan.restype = _INT

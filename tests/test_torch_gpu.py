@@ -389,11 +389,13 @@ def test_bwd_placements_match_plain(cuda, name, placement):
     second call."""
     scene = _scene(name, cuda)
     args, bkw = _bwd_case(scene, _camera(POSES[1], cuda))
-    assert bwd_plan(bkw["width"], bkw["rows"], args[0].shape[0], bkw["n_lights"],
-                    bkw["bounces"])[0] == placement
-    before = render_bwd.launches_by_placement[placement]
+    plan = bwd_plan(bkw["width"], bkw["rows"], args[0].shape[0], bkw["n_lights"],
+                    bkw["bounces"])
+    assert (plan[0], plan[3]) == (placement, "shared")
+    layout = f"{placement}.shared"
+    before = render_bwd.launches_by_placement[layout]
     vec = _kernel_vs_plain_bwd(args, bkw, (name, placement))
-    assert render_bwd.launches_by_placement[placement] == before + 1
+    assert render_bwd.launches_by_placement[layout] == before + 1
     assert torch.equal(render_bwd(*args, **bkw), vec)
 
 
@@ -402,8 +404,8 @@ def test_bwd_ragged_grid(cuda):
     or of waves: the kernel against the plain version."""
     scene = _scene("dingdong", cuda, 1000, 37)
     args, bkw = _bwd_case(scene, _camera(POSES[0], cuda))
-    placement, blocks, _ = bwd_plan(1000, 37, args[0].shape[0], bkw["n_lights"],
-                                    bkw["bounces"])
+    placement, blocks, _, _ = bwd_plan(1000, 37, args[0].shape[0], bkw["n_lights"],
+                                       bkw["bounces"])
     assert (1000 * 37) % (blocks * 64) != 0
     assert placement == "columns"
     _kernel_vs_plain_bwd(args, bkw, "1000x37")
@@ -637,6 +639,43 @@ def test_fit_step_launches_each_kernel_once(cuda):
     assert np.isfinite(losses).all() and losses[1] < losses[0]
     state = optimizer.state[params["light_color"]]
     assert params["light_color"].device.type == state["exp_avg"].device.type == "cuda"
+
+
+def test_fit_step_counts_the_bwd_layout(cuda):
+    """20spheres' colour and light fit on the kernel route (20 objects, 19
+    lights, 631 gradient rows): every step, graphed or not, is one render_fwd
+    launch with aux and one render_bwd launch, counted under K2's
+    light_columns placement with its warp copies in shared memory; the step
+    replays one graph, and none of its keys runs eagerly over the byte
+    bound."""
+    from tpu_ray_tracer_torch.diff.inverse import (InverseProblem, extract_params,
+                                                   make_train_step)
+    from tpu_ray_tracer_torch.render.bwd_kernel import BWD_LAYOUTS
+
+    scene = _scene("20spheres", cuda)
+    with torch.no_grad():
+        target = ttt.render_image_kernel(scene, polish_iters=2, bounces=0)
+    fields = ("colors", "light_color")
+    perturbed = dataclasses.replace(scene, colors=scene.colors * 0.6,
+                                    light_color=scene.light_color * 0.6)
+    problem = InverseProblem(scene_template=perturbed,
+                             config=ttt.RenderConfig("float32", 2, chunk_px=None),
+                             param_fields=fields, learning_rate=5e-2, backend="kernel")
+    params = extract_params(perturbed.astype(torch.float32), fields)
+    optimizer = problem.optimizer(params)
+    step = make_train_step(problem)
+    cam = _camera(POSES[0], cuda)
+    placement, _, _, acc = bwd_plan(64, 48, 20, 19, 0)
+    assert (placement, acc) == ("light_columns", "shared")
+    for k in range(5):
+        before = dict(render_bwd.launches_by_placement)
+        a0, b0 = render_fwd.launches_save_aux, render_bwd.launches
+        step(params, optimizer, cam, target)
+        torch.cuda.synchronize()
+        assert (render_fwd.launches_save_aux - a0, render_bwd.launches - b0) == (1, 1), k
+        assert {n: render_bwd.launches_by_placement[n] - before[n] for n in BWD_LAYOUTS} == {
+            n: int(n == "light_columns.shared") for n in BWD_LAYOUTS}, k
+    assert step.graphs.captures == 1 and step.graphs.over_bound == 0
 
 
 def test_row_block_backward_equals_one_shot(cuda):
@@ -927,7 +966,8 @@ def test_graphed_gradients_equal_eager(cuda, name):
 
 
 @pytest.mark.parametrize("name,fields", [("dingdong", ("light_color",)),
-                                         ("clebsch", ("coefs", "light_color"))])
+                                         ("clebsch", ("coefs", "light_color")),
+                                         ("20spheres", ("colors", "light_color"))])
 def test_graphed_fit_steps_equal_eager(cuda, name, fields, tmp_path):
     """Five kernel-route train steps through the step's graph give the
     losses and parameters of five eager steps with the same capturable

@@ -160,7 +160,7 @@ def _bump_counts():
     render_fwd.launches += 1
     render_fwd.launches_by_variant["main"] += 1
     render_bwd.launches += 2
-    render_bwd.launches_by_placement["warp"] += 2
+    render_bwd.launches_by_placement["warp.shared"] += 2
 
 
 def test_capture_takes_back_counts_and_replay_adds_them(fake):
@@ -186,13 +186,13 @@ def test_capture_takes_back_counts_and_replay_adds_them(fake):
     entry = graphs.Graph(torch.device("cpu"), body, [x])
     assert graphs.launch_counts() == after_warmup  # the capture took its counts back
     assert entry.captured.counts == {"render_fwd": 1, "render_fwd.main": 1, "render_bwd": 2,
-                                     "render_bwd.warp": 2}
+                                     "render_bwd.warp.shared": 2}
     out = call(x + 1)  # second use: capture, then replay
     assert fake.calls == ["warmup", "capture", "capture", "replay"]
     assert torch.equal(out, (x + 1) * 2) and cache.captures == 1
     counts = graphs.launch_counts()
     assert counts["render_fwd"] == after_warmup["render_fwd"] + 1
-    assert counts["render_bwd.warp"] == after_warmup["render_bwd.warp"] + 2
+    assert counts["render_bwd.warp.shared"] == after_warmup["render_bwd.warp.shared"] + 2
     call(x + 2)
     assert graphs.launch_counts()["render_bwd"] == counts["render_bwd"] + 2
     assert cache.captures == 1 and len(cache) == 1

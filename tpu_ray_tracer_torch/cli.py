@@ -68,22 +68,38 @@ def _load(args):
     return scene
 
 
-def _camera_from_pose(pose, device):
-    """(X, Y, Z, YAW, PITCH) — the --pose argument order — to an f32 Camera."""
+def _camera_from_pose(pose, device, dtype=None):
+    """(X, Y, Z, YAW, PITCH) — the --pose argument order — to a Camera, f32
+    unless ``dtype`` says otherwise."""
     import torch
 
     from . import Camera
 
+    dtype = dtype or torch.float32
     return Camera(
-        position=torch.tensor(pose[:3], dtype=torch.float32, device=device),
-        yaw_deg=torch.tensor(pose[3], dtype=torch.float32, device=device),
-        pitch_deg=torch.tensor(pose[4], dtype=torch.float32, device=device),
+        position=torch.tensor(pose[:3], dtype=dtype, device=device),
+        yaw_deg=torch.tensor(pose[3], dtype=dtype, device=device),
+        pitch_deg=torch.tensor(pose[4], dtype=dtype, device=device),
     )
 
 
-def _tensor_render(backend: str):
-    """``(scene, camera) -> [H, W, 3]`` tensor for the ``kernel`` or
-    ``torch`` backend."""
+def _frame_render(backend: str):
+    """``(scene, camera) -> [H, W, 3]`` tensor for a backend; ``numpy``
+    renders with the oracle at the camera's pose (the reference pose for
+    None) and wraps the array."""
+    if backend == "numpy":
+        import torch
+
+        from .render.reference_cpu import render_image_np
+
+        def frame(scene, camera):
+            if camera is None:
+                return torch.from_numpy(render_image_np(scene))
+            return torch.from_numpy(render_image_np(
+                scene, position=tuple(camera.position.tolist()),
+                yaw_deg=float(camera.yaw_deg), pitch_deg=float(camera.pitch_deg)))
+        return frame
+
     from . import FAST_CONFIG, render_image, render_image_kernel
 
     if backend == "kernel":
@@ -94,22 +110,14 @@ def _tensor_render(backend: str):
 def _renderer(scene, backend: str):
     """``render(pose) -> [H, W, 3]`` numpy for a backend; ``pose`` is the
     --pose tuple or None for the reference pose."""
-    if backend == "numpy":
-        from .render.reference_cpu import render_image_np
-
-        def render(pose):
-            pose = pose or (0.0, 0.0, 0.0, 90.0, 0.0)
-            return render_image_np(scene, position=pose[:3], yaw_deg=pose[3],
-                                   pitch_deg=pose[4])
-        return render
-
     import torch
 
-    device = scene.coefs.device
-    frame = _tensor_render(backend)
+    frame = _frame_render(backend)
+    # the oracle takes the pose in float64, as the --pose tuple holds it
+    dtype = torch.float64 if backend == "numpy" else torch.float32
 
     def render(pose):
-        camera = _camera_from_pose(pose, device) if pose else None
+        camera = _camera_from_pose(pose, scene.coefs.device, dtype) if pose else None
         with torch.no_grad():
             return frame(scene, camera).cpu().numpy()
     return render
@@ -188,7 +196,7 @@ def cmd_bench(args) -> int:
         return 0
 
     cams = [_camera_from_pose(pose, device) for pose in poses]
-    render = _tensor_render(backend)
+    render = _frame_render(backend)
     cuda = device.type == "cuda"
 
     with torch.no_grad():
@@ -369,7 +377,7 @@ def cmd_view(args) -> int:
     import dataclasses
 
     from . import load_from_file
-    from .utils.term_view import downsample_for_view, run_viewer
+    from .utils.term_view import run_viewer, view_frame
 
     scene = load_from_file(args.scene, device=args.device)
     if args.render_size:
@@ -377,11 +385,10 @@ def cmd_view(args) -> int:
             scene, width=args.render_size[0], height=args.render_size[1])
     view_w = args.size[0] if args.size else 120
     view_h = args.size[1] if args.size else 72
-    render = _renderer(scene, _resolve_backend(args.backend, scene.coefs.device))
+    frame = _frame_render(_resolve_backend(args.backend, scene.coefs.device))
 
     def render_fn(camera):
-        pose = (*camera.position.tolist(), float(camera.yaw_deg), float(camera.pitch_deg))
-        return downsample_for_view(render(pose), view_w, view_h)
+        return view_frame(frame, scene, camera, view_w, view_h)
 
     run_viewer(render_fn, view_w, view_h, print_fn=None, device=args.device)
     return 0

@@ -787,7 +787,8 @@ cudaError_t allow_smem(KernelFn kernel, size_t smem) {
 // threads on an SM (the warp placement with at least one block); out[1]
 // the blocks, one resident wave (occupancy x SMs) or fewer where the image
 // is small; out[2] the floats of device scratch (the [rows, blocks] partial
-// table, and the warp row copies when they do not fit in shared memory).
+// table, and the warp row copies when they do not fit in shared memory);
+// out[3] 1 where those copies are in that scratch, else 0.
 // Returns a CUDA error; cudaErrorInvalidConfiguration when nothing fits.
 extern "C" int trt_render_bwd_plan(int width, int rows, int n_obj, int n_lights, int bounces,
                                    long long* out) {
@@ -811,6 +812,7 @@ extern "C" int trt_render_bwd_plan(int width, int rows, int n_obj, int n_lights,
     out[0] = p;
     out[1] = blocks;
     out[2] = R.total * blocks + (L.global_acc ? blocks * WARPS * R.total : 0);
+    out[3] = L.global_acc ? 1 : 0;
     return 0;
   }
   return (int)cudaErrorInvalidConfiguration;

@@ -488,27 +488,32 @@ def _check_bwd_args(tables, grad_image, aux, rows, width, n_lights, bounces):
 # reductions only, with the light rows in per-thread columns of shared
 # memory, or with every non-camera row in those columns.
 BWD_PLACEMENTS = ("warp", "light_columns", "columns")
+# The keys of ``render_bwd.launches_by_placement``: a placement and where
+# the warps' copies of the rows live, shared memory or, when they do not fit
+# beside the tables, global scratch.
+BWD_LAYOUTS = tuple(f"{p}.{s}" for p in BWD_PLACEMENTS for s in ("shared", "global"))
 
 
 def bwd_plan(width: int, rows: int, n_obj: int, n_lights: int, bounces: int):
-    """(placement, blocks, floats of scratch) of the kernel's launch for
-    these arguments on the current CUDA device, as the launcher's plan
-    picks them: the first placement of columns, light_columns, warp that
-    fits in shared memory with 256 threads resident per SM, and one
-    resident wave of blocks. Planned once per device and shape."""
+    """(placement, blocks, floats of scratch, where the warps' row copies
+    live) of the kernel's launch for these arguments on the current CUDA
+    device, as the launcher's plan picks them: the first placement of
+    columns, light_columns, warp that fits in shared memory with 256
+    threads resident per SM, one resident wave of blocks, and ``"shared"``
+    or ``"global"``. Planned once per device and shape."""
     return _plan(torch.cuda.current_device(), width, rows, n_obj, n_lights, bounces)
 
 
 @functools.lru_cache(maxsize=64)
 def _plan(device_index: int, width, rows, n_obj, n_lights, bounces):
     lib = _build.load("render_bwd")
-    out = (ctypes.c_longlong * 3)()
+    out = (ctypes.c_longlong * 4)()
     with torch.cuda.device(device_index):
         rc = lib.trt_render_bwd_plan(width, rows, n_obj, n_lights, bounces, out)
     if rc != 0:
         raise RuntimeError(f"render_bwd: no launch for this frame: CUDA error "
                            f"{rc} ({_build.error_string('render_bwd', rc)})")
-    return BWD_PLACEMENTS[out[0]], int(out[1]), int(out[2])
+    return BWD_PLACEMENTS[out[0]], int(out[1]), int(out[2]), ("shared", "global")[out[3]]
 
 
 def render_bwd(coefs, colors, refl, lights, cam, grad_image, aux_t, aux_slot, aux_occ,
@@ -519,9 +524,9 @@ def render_bwd(coefs, colors, refl, lights, cam, grad_image, aux_t, aux_slot, au
     [row0, row0 + rows), from the aux of ``render_fwd(..., save_aux=True)``.
 
     CUDA tensors launch the kernel of ``csrc/render_bwd.cu`` on the current
-    stream (and count the launch in ``render_bwd.launches`` and in
-    ``render_bwd.launches_by_placement``); CPU tensors run
-    ``render_bwd_plain``. Tensors on any other device raise. The kernel
+    stream (and count the launch in ``render_bwd.launches`` and, under its
+    ``BWD_LAYOUTS`` key, in ``render_bwd.launches_by_placement``); CPU
+    tensors run ``render_bwd_plain``. Tensors on any other device raise. The kernel
     sums each row over pixels in a fixed order (no atomics), so a call
     repeated on the same inputs gives the same bits. The placement of the
     gradient rows is ``bwd_plan``'s.
@@ -543,7 +548,7 @@ def render_bwd(coefs, colors, refl, lights, cam, grad_image, aux_t, aux_slot, au
     out = torch.empty(n_rows, dtype=torch.float32, device=device)  # the kernel writes every row
     lib = _build.load("render_bwd")
     with torch.cuda.device(device):
-        placement, blocks, n_scratch = bwd_plan(width, rows, n_obj, n_lights, bounces)
+        placement, blocks, n_scratch, acc = bwd_plan(width, rows, n_obj, n_lights, bounces)
         scratch = torch.empty(max(n_scratch, 1), dtype=torch.float32, device=device)
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.trt_render_bwd(
@@ -554,9 +559,9 @@ def render_bwd(coefs, colors, refl, lights, cam, grad_image, aux_t, aux_slot, au
         raise RuntimeError(f"render_bwd: kernel launch ({placement}) failed: CUDA error {rc} "
                            f"({_build.error_string('render_bwd', rc)})")
     render_bwd.launches += 1
-    render_bwd.launches_by_placement[placement] += 1
+    render_bwd.launches_by_placement[f"{placement}.{acc}"] += 1
     return out
 
 
 render_bwd.launches = 0
-render_bwd.launches_by_placement = dict.fromkeys(BWD_PLACEMENTS, 0)
+render_bwd.launches_by_placement = dict.fromkeys(BWD_LAYOUTS, 0)

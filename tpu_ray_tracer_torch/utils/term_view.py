@@ -26,7 +26,7 @@ import numpy as np
 
 from .film import to_uint8
 from .flycam import FlyCamera
-from .timing import FrameTimer
+from .timing import FrameTimer, span
 
 ESC = "\x1b"
 
@@ -48,6 +48,27 @@ def downsample_for_view(image: np.ndarray, view_w: int, view_h: int) -> np.ndarr
     ys = (np.arange(view_h) * h) // view_h
     xs = (np.arange(view_w) * w) // view_w
     return image[ys][:, xs]
+
+
+def view_frame(frame, scene, camera, view_w: int, view_h: int) -> np.ndarray:
+    """One frame of the viewer: ``frame(scene, camera)`` (a tensor backend's
+    render, ``render_image_kernel`` on the card) without a gradient, read
+    back to the host whole, then ``downsample_for_view`` to the
+    [view_h, view_w, 3] grid. The frame is delivered when that array is on
+    the host.
+
+    While a torch profiler runs it shows as the span ``trt.view``, with the
+    copy to the host as ``trt.view.readback`` and the reduction as
+    ``trt.view.downsample``."""
+    import torch
+
+    with span("trt.view"):
+        with torch.no_grad():
+            image = frame(scene, camera)
+        with span("trt.view.readback"):
+            host = image.cpu().numpy()
+        with span("trt.view.downsample"):
+            return downsample_for_view(host, view_w, view_h)
 
 
 def frame_to_ansi(image: np.ndarray) -> str:
