@@ -9,8 +9,8 @@ result line):
 1. device: require CUDA; print the card's name and power limit, torch,
    CUDA and nvcc versions;
 2. build: compile every kernel of the path from csrc/ (render_fwd.cu,
-   render_bwd.cu, pack.cu, select_rows.cu), one nvcc per source, all
-   started together (timed as set-up);
+   render_bwd.cu, pack.cu, select_rows.cu, solve_roots.cu), one nvcc per
+   source, all started together (timed as set-up);
 3. main path: load scenes/dingdong.yml (onto the card, the loader's
    default) and render it at 1280x720 from the reference pose through
    ``render_image_kernel``, with every launch count set to 0 just before and
@@ -52,6 +52,15 @@ result line):
    it, and a second call gives the same bits; then the kernel timed alone
    (device-only), its plain version (each object's rows masked and summed)
    and aten's ``index_put_`` beside its bytes' bound;
+5d. the pipeline's root solve (``solve_roots``, csrc/solve_roots.cu) on the
+   four calls of clebsch 800x600's soft render by row blocks (374 rows,
+   then 226: branch A's primary solve [rows, 800] and both branches' shadow
+   solve [2, rows, 800, 6]; polish 2), recorded from ``Loss.render_rows``:
+   each call's root table equal to ``_solve_plain``'s on the same tensors
+   bit for bit, or each differing entry's ulps listed (fatal), one launch
+   a call; then the kernel timed alone (device-only) beside its bound
+   (``render/bounds.py`` ``solve_work`` at ``H100_F32_ISSUE_PER_S``, as
+   the source is built without FMAs) and the plain version;
 6. timing: CUDA events over 32 frames of dingdong 1280x720 at yaws
    90 + 1e-3 k after warm-up (the kernel alone as device time of its
    launches run back to back, proven by ``timed_ms``'s gate; the whole call
@@ -164,8 +173,12 @@ result line):
    cayley and GOLDEN on dingdong and reflection_test, each captured at its
    second call and replayed at two further poses, bitwise the eager frame
    (cayley may share clebsch's key), a kept frame unchanged by the next
-   replay, and 20spheres FAST in one shot held eager by the byte bound
-   (``graphs.MAX_GRAPH_BYTES``: 2 of its 3 calls counted in ``over_bound``);
+   replay, and 20spheres FAST in one shot captured like them (its key's
+   warm-up, logged, is under ``graphs.MAX_GRAPH_BYTES`` since the root
+   solve is one kernel: none of its 3 calls counted in ``over_bound``),
+   then, with ``MAX_GRAPH_BYTES`` set to one frame's bytes in a fresh
+   cache, held eager by the byte bound (2 of its 3 calls counted in
+   ``over_bound``, no capture) and bitwise the eager frame;
    (d) 8c's 33-light and 0-object scenes through ``render_image_kernel`` and
    ``backward()``, the graphed frame and gradients bitwise the eager ones
    over warm-up, capture and replay, one render_fwd (main) and no render_bwd
@@ -219,7 +232,8 @@ line (each kernel's launches on the main paths, 9e's, 9f's, the sharded ones of
 10a and of both ranks of 10b and the bench's of 11 included, its time, its plain
 version's, its bound and share of the bound on dingdong 1280x720, and
 ``select_rows``' at clebsch's soft row blocks: its launches in 5c, 8c, 9b and
-9f; no single PyTorch call computes K1, K2 or the packing, so their
+9f; ``solve_roots``' at the same blocks, its launches in 5d and 9b; no single
+PyTorch call computes K1, K2, the packing or the solve, so their
 ``library_ms`` is null, and ``select_rows``' is aten's ``index_put_``), and
 {"ok": true, "device": {...}}.
 """
@@ -251,13 +265,15 @@ GATE_FRAMES = 256      # 6: the long sweep of the device-only reading's check
 GATE_RTOL = 0.02       # 6: each of its four readings against the quiet 32-frame one
 K2_LONG_SWEEP = 128    # 7e: the bench's sweep at TRT_BENCH_FRAMES=128
 PLAIN_FRAMES = 3
-KERNELS = ("render_fwd", "render_bwd", "pack", "select_rows")
+KERNELS = ("render_fwd", "render_bwd", "pack", "select_rows", "solve_roots")
 PACK_VJP_RTOL = 1e-5   # 5b: d yaw, d pitch, kernel against plain, relative
 PACK_TIMED_CALLS = 256  # 5b: each packing kernel timed alone; 5c: select_rows_bwd
 # 5c: clebsch 800x600's two soft row blocks (Loss.block_rows 374 of 600 rows,
 # then 226), each of 800 rays and both branches
 SELECT_ROWS = (2 * 374 * 800, 2 * 226 * 800)
 SELECT_PLAIN_CALLS = 3  # 5c: the plain version and aten's index_put_, timed
+SOLVE_TIMED_CALLS = 64  # 5d: solve_roots timed alone, a call
+SOLVE_PLAIN_CALLS = 3   # 5d: its plain version, timed
 # 5b: device ops a frame of the bench's dingdong sweep graphs on the parent
 # (19626a1), PERF.md's step-1 profile (frame_profile, NVIDIA H100 80GB HBM3,
 # 700.00 W)
@@ -564,6 +580,71 @@ def select_phase(dev, smi: str) -> dict:
     return out
 
 
+def solve_phase(dev, smi: str) -> dict:
+    """Phase 5d (see the module's docstring); returns the root solve's
+    kernel at each of the four calls of clebsch's soft render by row blocks:
+    its time, its plain version's, its bound and its launches."""
+    import torch
+
+    import tpu_ray_tracer_torch as ttt
+    from tpu_ray_tracer_torch.diff.inverse import Loss, extract_params
+    from tpu_ray_tracer_torch.kernel_bench import timed_ms
+    from tpu_ray_tracer_torch.ops import intersect
+    from tpu_ray_tracer_torch.pipeline_profile import _camera, fit_problem
+    from tpu_ray_tracer_torch.render import bounds
+    from tpu_ray_tracer_torch.ops.solve_kernel import _solve_plain, solve_roots
+
+    clebsch = ttt.load_from_file(os.path.join(REPO, "scenes", "clebsch.yml"), device=dev)
+    problem, _ = fit_problem(clebsch, ["coefs", "light_color"], "torch", soft_tau=0.15)
+    loss = Loss(problem)
+    params = extract_params(problem.scene_template.astype(torch.float32), problem.param_fields)
+    calls = []
+
+    def record(coefs, origin, d, polish):
+        calls.append((coefs.detach(), origin.detach(), d.detach(), polish))
+        return solve_roots(coefs, origin, d, polish)
+
+    intersect.solve_roots = record
+    try:
+        with torch.no_grad():
+            for y0 in range(0, clebsch.height, loss.block_rows):
+                loss.render_rows(params, _camera(dev), y0,
+                                 min(loss.block_rows, clebsch.height - y0))
+    finally:
+        intersect.solve_roots = solve_roots
+    out = {"calls": [], "launches": 0}
+    for coefs, origin, d, polish in calls:
+        label = "x".join(map(str, torch.broadcast_shapes(origin.shape, d.shape)[:-1]))
+        before = solve_roots.launches
+        got = solve_roots(coefs, origin, d, polish)
+        out["launches"] += solve_roots.launches - before
+        want = _solve_plain(coefs, origin, d, polish)
+        differ = (got != want) & ~(got.isnan() & want.isnan())
+        if bool(differ.any()):
+            ulps = (_ordered_bits(got) - _ordered_bits(want)).abs()[differ]
+            raise RuntimeError(f"solve_roots [{label}]: {int(differ.sum())} of {got.numel()} "
+                               f"entries differ from _solve_plain, up to {int(ulps.max())} ulps")
+        ms = timed_ms(lambda k: solve_roots(coefs, origin, d, polish), SOLVE_TIMED_CALLS,
+                      device_only=True)
+        plain_ms = timed_ms(lambda k: _solve_plain(coefs, origin, d, polish), SOLVE_PLAIN_CALLS)
+        work = bounds.solve_work(coefs, origin, d, polish)
+        # built without FMAs: each multiply and add is an instruction of its own
+        bound, by = bounds.bound_ms(work["ops"], work["bytes"], bounds.H100_F32_ISSUE_PER_S)
+        out["calls"].append({"shape": label, "solves": got.numel(), "ms": ms, "plain_ms": plain_ms,
+                             "bound_ms": bound, "bound_by": by, "ops": work["ops"],
+                             "bytes": work["bytes"], "share_of_bound": bound / ms})
+        log(f"[solve] solve_roots, clebsch's soft row block [{label}] x {coefs.shape[0]} "
+            f"object, polish {polish}: bit for bit _solve_plain's; kernel {ms * 1e3:.3f} us a "
+            f"call (device-only, {SOLVE_TIMED_CALLS} calls), plain version {plain_ms:.3f} ms "
+            f"(CUDA events with the host's gaps); bound {bound * 1e3:.3f} us ({by}: "
+            f"{work['ops']} operations at the f32 issue rate without FMAs, "
+            f"{work['bytes']} bytes), share {bound / ms:.3f} ({smi})")
+    if out["launches"] != len(calls) or len(calls) != 4:
+        raise RuntimeError(f"solve_roots: {len(calls)} calls in the soft render by row blocks "
+                           f"(want 4), {out['launches']} launches")
+    return out
+
+
 def _camera_f64(cam):
     """``cam`` with f64 tensors."""
     import torch
@@ -592,6 +673,7 @@ def main() -> int:
     from tpu_ray_tracer_torch.render.kernel_backend import pack_frame
     from tpu_ray_tracer_torch.render.pack_kernel import pack_tables, pack_vjp
     from tpu_ray_tracer_torch.render.select_kernel import select_rows
+    from tpu_ray_tracer_torch.ops.solve_kernel import solve_roots
 
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
@@ -630,6 +712,7 @@ def main() -> int:
     def zero_counts():
         render_fwd.launches = render_fwd.launches_save_aux = render_bwd.launches = 0
         pack_tables.launches = pack_vjp.launches = select_rows.launches = 0
+        solve_roots.launches = 0
         for counts in (render_fwd.launches_by_variant, render_bwd.launches_by_placement):
             for key in counts:
                 counts[key] = 0
@@ -643,6 +726,9 @@ def main() -> int:
     main_launches = render_fwd.launches
     main_variants = {k: v for k, v in render_fwd.launches_by_variant.items() if v}
     main_pack = (pack_tables.launches, pack_vjp.launches)
+    if solve_roots.launches:
+        raise RuntimeError(f"main path: {solve_roots.launches} solve_roots launches on the "
+                           f"kernel route")
     if main_launches < 1 or main_variants != {"main": main_launches}:
         raise RuntimeError(f"main path: render_fwd launches {main_launches}, by "
                            f"instantiation {main_variants}; expected the main one")
@@ -703,6 +789,11 @@ def main() -> int:
     zero_counts()
     select = select_phase(dev, smi)
     select_by_path = {"vs_f64": select_rows.launches}
+
+    # --- 5d. the pipeline's root solve at clebsch's soft row blocks ---
+    zero_counts()
+    solve = solve_phase(dev, smi)
+    solve_by_path = {"vs_plain": solve["launches"]}
 
     # --- 6. timing (dingdong 1280x720, the JAX bench's yaw sweep) ---
     n_px = ding.width * ding.height
@@ -1281,17 +1372,20 @@ def main() -> int:
         zero_counts()
         losses, times, peak = fit_steps(problem, target, steps)
         launches = (render_fwd.launches_save_aux, render_bwd.launches, pack_tables.launches,
-                    pack_vjp.launches, select_rows.launches)
+                    pack_vjp.launches, select_rows.launches, solve_roots.launches)
         baseline_steps[label] = float(np.median(times))
         log(f"[fit] clebsch 800x600 coefs+light_color, {label} ({loss_fn.block_rows} rows a "
             f"block): losses {losses}, step ms {', '.join(f'{t:.4f}' for t in times)}, peak "
             f"{peak:.3f} GiB, kernel launches (fwd with aux, bwd, pack_frame, pack_vjp, "
-            f"select_rows) {launches} ({smi})")
-        # the soft route: one select_rows launch a row block, for the coefficients' gather
+            f"select_rows, solve_roots) {launches} ({smi})")
+        # the soft route: one select_rows launch a row block, for the coefficients' gather,
+        # and two solve_roots launches (branch A's primary solve, both branches' shadows)
         row_blocks = -(-clebsch.height // loss_fn.block_rows)
-        want = (steps,) * 4 + (0,) if backend == "kernel" else (0,) * 4 + (row_blocks * steps,)
+        want = ((steps,) * 4 + (0, 0) if backend == "kernel"
+                else (0,) * 4 + (row_blocks * steps, 2 * row_blocks * steps))
         if backend != "kernel":
             select_by_path["fit_soft"] = select_rows.launches
+            solve_by_path["fit_soft"] = solve_roots.launches
         if launches != want or not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
             raise RuntimeError(f"baseline fit {label}: launches {launches} (want {want}) or the "
                                f"loss did not fall: {losses}")
@@ -1695,8 +1789,8 @@ def main() -> int:
 
         # (c) pipeline frames: each key captured at its second call (the
         # reference pose) and replayed at two further poses, bitwise the eager
-        # frame; a kept frame unchanged; 20spheres in one shot held eager by the
-        # byte bound
+        # frame; a kept frame unchanged; 20spheres in one shot under the byte
+        # bound, then held eager by a bound of one frame
         pipe_cache = pipeline._FRAMES
         pipe_cache.clear()
         captures_before, shared_keys = pipe_cache.captures, {}
@@ -1734,18 +1828,49 @@ def main() -> int:
             + f"; the cache keeps {pipe_cache.bytes() / 2**30:.3f} GiB in {len(pipe_cache)} graphs "
             f"(bound {graphs.MAX_GRAPH_BYTES / 2**30:.0f} GiB) ({smi})")
         spheres, over = scenes["20spheres"], pipe_cache.over_bound
+        keys, captured = set(pipe_cache._entries), pipe_cache.captures
         with torch.no_grad():
-            big = [ttt.render_image(spheres, poses["reference"]) for _ in range(3)]
+            big = [ttt.render_image(spheres, poses["reference"])]
+            new_keys = set(pipe_cache._entries) - keys
+            if len(new_keys) != 1:
+                raise RuntimeError(f"pipeline graphs 20spheres: {len(new_keys)} new keys "
+                                   "(want 1)")
+            key = next(iter(new_keys))
+            warm_bytes = pipe_cache.bytes(key) or 0  # its warm-up's, until it is captured
+            big += [ttt.render_image(spheres, poses["reference"]) for _ in range(2)]
+            graph_bytes = pipe_cache.bytes(key) or 0
             with graphs.eager():
                 want = ttt.render_image(spheres, poses["reference"])
-        warm_gib = max(pipe_cache.bytes(key) or 0 for key in pipe_cache._entries) / 2**30
         log(f"[pipeline-graphs] 20spheres {spheres.width}x{spheres.height} FAST in one shot: its "
-            f"warm-up held {warm_gib:.3f} GiB, over the {graphs.MAX_GRAPH_BYTES / 2**30:.0f} GiB "
-            f"bound: {pipe_cache.over_bound - over} of its 3 calls ran eagerly, counted in "
-            f"over_bound ({smi})")
-        if pipe_cache.over_bound - over != 2 or not all(torch.equal(b, want) for b in big):
+            f"key's warm-up held {warm_bytes} B ({warm_bytes / 2**30:.3f} GiB), under the "
+            f"{graphs.MAX_GRAPH_BYTES / 2**30:.0f} GiB bound, its graph {graph_bytes} B "
+            f"({graph_bytes / 2**30:.3f} GiB): {pipe_cache.captures - captured} capture, "
+            f"{pipe_cache.over_bound - over} of its 3 calls counted in over_bound ({smi})")
+        if (pipe_cache.over_bound - over != 0 or pipe_cache.captures - captured != 1
+                or not all(torch.equal(b, want) for b in big)):
             raise RuntimeError(f"pipeline graphs 20spheres: {pipe_cache.over_bound - over} calls "
-                               "over the byte bound (want 2), or its frames differ")
+                               f"over the byte bound (want 0), {pipe_cache.captures - captured} "
+                               "captures (want 1), or its frames differ")
+        # the byte bound's eager path: with MAX_GRAPH_BYTES at one frame's
+        # bytes, the same frame's warm-up is over it, so its next 2 calls run
+        # eagerly, counted in over_bound, and nothing is captured
+        saved = pipeline._FRAMES, graphs.MAX_GRAPH_BYTES
+        pipeline._FRAMES = held_cache = graphs.GraphCache()
+        graphs.MAX_GRAPH_BYTES = want.numel() * want.element_size()
+        try:
+            with torch.no_grad():
+                held = [ttt.render_image(spheres, poses["reference"]) for _ in range(3)]
+        finally:
+            pipeline._FRAMES, graphs.MAX_GRAPH_BYTES = saved
+        log(f"[pipeline-graphs] 20spheres FAST in one shot under a bound of one frame "
+            f"({want.numel() * want.element_size()} B): {held_cache.over_bound} of its 3 calls "
+            f"ran eagerly, counted in over_bound, {held_cache.captures} captures ({smi})")
+        if (held_cache.over_bound != 2 or held_cache.captures != 0
+                or not all(torch.equal(h, want) for h in held)):
+            raise RuntimeError(f"pipeline graphs over the byte bound: {held_cache.over_bound} calls "
+                               f"counted (want 2), {held_cache.captures} captures (want 0), or "
+                               "its frames differ from the eager one")
+        del held, held_cache
         del big, want
 
         # (d) the >31-light and 0-object gradients (8c's scenes): graphed
@@ -2111,6 +2236,18 @@ def main() -> int:
                            / select["blocks"][SELECT_ROWS[0]]["ms"]),
         "rows": SELECT_ROWS[0],
         "second_block": {"rows": SELECT_ROWS[1], **select["blocks"][SELECT_ROWS[1]]},
+    }, {
+        "name": "solve_roots",
+        "route": "cuda",
+        "source": "tpu_ray_tracer_torch/csrc/solve_roots.cu",
+        "replaces": "tpu_ray_tracer/ops/intersect.py:37-54 (XLA's fusion of intersect_all; not "
+                    "a Pallas kernel)",
+        "launches": sum(solve_by_path.values()),
+        "launches_by_path": solve_by_path,
+        "worst_ulps_vs_plain": 0,
+        "library_ms": None,
+        # clebsch 800x600's soft render by row blocks, its four calls
+        "calls": solve["calls"],
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

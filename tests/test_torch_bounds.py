@@ -28,6 +28,7 @@ def test_counter_weights():
         c["sqrt"] + c["rsqrt"] + 1)
     assert bounds.count_ops(lambda: torch.cos(x) * torch.pow(x, 1.0 / 3.0)) == (
         c["cos"] + c["pow"] + 1)
+    assert bounds.count_ops(lambda: torch.arccos(x) + x) == c["acos"] + 1
     assert bounds.count_ops(lambda: torch.where(x > 0, -x, torch.abs(x))) == 0
     assert bounds.count_ops(lambda: y.sum()) == 2
     assert bounds.count_ops(lambda: y * 2.0) == 3
@@ -38,6 +39,9 @@ def test_bound_takes_the_larger_time():
     assert by == "operations" and ms == pytest.approx(1.0)
     ms, by = bounds.bound_ms(1.0, 3.35e9)
     assert by == "bytes" and ms == pytest.approx(1.0)
+    # a source without FMAs: one operation an instruction, half the rate
+    ms, by = bounds.bound_ms(67e9, 1.0, bounds.H100_F32_ISSUE_PER_S)
+    assert by == "operations" and ms == pytest.approx(2.0)
 
 
 def _frame(name, width=32, height=24):

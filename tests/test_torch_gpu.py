@@ -1,10 +1,11 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
 forward (with and without its per-stage aux) and the backward; the plain
 pipeline, the gradient fallback and the CLI on the card; the fit's
-kernel-route step, its row-block pipeline backward and the soft render; and
-the row-sharded frame and step over an NCCL group of one rank, the native
-scene loader on the card, the CUDA graphs of frames, gradients and fit
-steps against the eager paths (the kernel route's and the pipeline
+kernel-route step, its row-block pipeline backward and the soft render; the
+pipeline's root solve against its plain version; and the row-sharded frame
+and step over an NCCL group of one rank, the native scene loader on the
+card, the CUDA graphs of frames, gradients and fit steps against the eager
+paths (the kernel route's and the pipeline
 route's, and the bound on the bytes the graphs keep), and the port's bench
 at full size.
 
@@ -837,6 +838,136 @@ def test_select_rows_on_card_matches_indexing(cuda, n, c, dtype, idx_kind):
     assert select_rows.launches == before + 1
 
 
+# --- the pipeline's root solve: solve_roots' kernel ---
+
+def _solve_inputs(name, device, dtype, polish, width=64, height=48):
+    """{shape: (coefs, origin, dir)} of a scene's two solves as the pipeline
+    makes them: ``primary``, the camera's rays [R, 3] from one eye expanded;
+    ``shadow``, the shadow rays of their nearest hits (``shade_roots``), for
+    the soft render's two branches stacked: origin [2, R, 1, 3] against dir
+    [2, R, L, 3]."""
+    from tpu_ray_tracer_torch.ops import camera as camera_ops
+    from tpu_ray_tracer_torch.ops.constants import MAX_T, SHADOW_BIAS
+    from tpu_ray_tracer_torch.ops.intersect import valid_hit_mask
+    from tpu_ray_tracer_torch.ops.poly import normal_vector
+    from tpu_ray_tracer_torch.ops.shading import shadow_ray_dirs
+    from tpu_ray_tracer_torch.ops.solve_kernel import _solve_plain
+
+    scene = _scene(name, device, width, height).astype(dtype)
+    rot, eye = camera_ops.camera_frame(_camera(POSES[1], device).to(dtype, device))
+    dirs = camera_ops.pixel_directions(rot, scene.width, scene.height, scene.aspect_ratio,
+                                       scene.tan_half_fov).reshape(-1, 3)
+    origin = eye.expand(dirs.shape)
+    t = _solve_plain(scene.coefs, origin, dirs, polish)
+    valid = valid_hit_mask(t)
+    idx = torch.argmin(torch.where(valid, t, torch.full_like(t, MAX_T)), dim=-1)
+    best = torch.where(valid.any(-1), torch.gather(t, -1, idx[:, None])[:, 0], 0.0)
+    point = origin + best[:, None] * dirs
+    normal = normal_vector(scene.coefs[idx], point)
+    sdir, _ = shadow_ray_dirs(scene.light_p, scene.light_is_spherical, point)
+    shadow_origin = (point + SHADOW_BIAS * normal)[:, None, :]
+    return {"primary": (scene.coefs, origin, dirs),
+            "shadow": (scene.coefs, shadow_origin.expand((2,) + shadow_origin.shape),
+                       sdir.expand((2,) + sdir.shape))}
+
+
+def _bit_gap(got, want):
+    """(entries whose bits differ, NaN where both are NaN excepted; the
+    largest gap in ulps among them)."""
+    ints = torch.int64 if got.dtype == torch.float64 else torch.int32
+    a, b = got.view(ints).to(torch.int64), want.view(ints).to(torch.int64)
+    sign = torch.iinfo(ints).max
+    a, b = torch.where(a < 0, -(a & sign), a), torch.where(b < 0, -(b & sign), b)
+    differ = (a != b) & ~(got.isnan() & want.isnan())
+    return int(differ.sum()), int((a - b).abs()[differ].max()) if bool(differ.any()) else 0
+
+
+# (geometry dtype, polish, coefficients' dtype): FAST's and GOLDEN's, and f64
+# coefficients under an f32 configuration (f64 parameters) and the reverse
+SOLVE_CASES = ([(torch.float32, polish, torch.float32) for polish in range(4)]
+               + [(torch.float64, 0, torch.float64), (torch.float32, 3, torch.float64),
+                  (torch.float64, 3, torch.float32)])
+
+
+@pytest.mark.parametrize("name", SCENES)
+def test_solve_roots_matches_plain(cuda, name):
+    """The root solve's kernel against ``_solve_plain`` on the same CUDA
+    tensors, bit for bit: the primary [R, 3] and the stacked shadow
+    [2, R, 1, 3] x [2, R, L, 3] shapes, f32 at polish 0-3, f64 at polish 0,
+    and coefficients of the other dtype than the rays' (the plain version
+    promotes), one launch a call."""
+    from tpu_ray_tracer_torch.ops.solve_kernel import _solve_plain, solve_roots
+
+    for dtype, polish, coef_dtype in SOLVE_CASES:
+        for shape, (coefs, origin, d) in _solve_inputs(name, cuda, dtype, polish).items():
+            coefs = coefs.to(coef_dtype)
+            before = solve_roots.launches
+            got = solve_roots(coefs, origin, d, polish)
+            torch.cuda.synchronize()
+            assert solve_roots.launches == before + 1
+            want = _solve_plain(coefs, origin, d, polish)
+            assert got.shape == want.shape and got.dtype == want.dtype
+            assert _bit_gap(got, want) == (0, 0), (name, shape, dtype, polish, coef_dtype)
+
+
+def test_solve_roots_refuses_what_it_does_not_take(cuda):
+    """On the card the solve launches the kernel or raises: a half-precision
+    table, origin and dir of two dtypes, or tensors on two devices."""
+    from tpu_ray_tracer_torch.ops.solve_kernel import solve_roots
+
+    coefs, origin, d = _solve_inputs("clebsch", cuda, torch.float32, 2)["primary"]
+    before = solve_roots.launches
+    for args in [(coefs.half(), origin.half(), d.half()), (coefs, origin.double(), d),
+                 (coefs.cpu(), origin, d)]:
+        with pytest.raises(ValueError, match="solve_roots"):
+            solve_roots(*args, 2)
+    assert solve_roots.launches == before
+
+
+def test_solve_roots_launches_in_a_soft_step(cuda):
+    """A clebsch 800x600 soft fit step solves through the kernel 4 times:
+    branch A's primary solve and the stacked shadow solve in each of its two
+    row blocks (branch B's roots are another function)."""
+    from tpu_ray_tracer_torch.diff.inverse import extract_params, make_train_step
+    from tpu_ray_tracer_torch.render import graphs
+    from tpu_ray_tracer_torch.ops.solve_kernel import solve_roots
+
+    problem, target = _pipeline_fit("clebsch", ("coefs", "light_color"), cuda, soft_tau=0.15,
+                                    size=(800, 600))
+    params = extract_params(problem.scene_template.astype(torch.float32), problem.param_fields)
+    step = make_train_step(problem)
+    before = solve_roots.launches
+    with graphs.eager():
+        loss = step(params, problem.optimizer(params), _camera(POSES[0], cuda), target, 0.15)
+    assert np.isfinite(loss)
+    assert solve_roots.launches - before == 4
+
+
+def test_fast_frames_unchanged_by_the_solve_kernel(cuda, monkeypatch):
+    """FAST frames at full size through the kernel equal those through
+    ``_solve_plain`` on the card bit for bit, on all 8 scenes, so their
+    bad-pixel levels against bench_goldens stay where they were (cayley
+    0.003567)."""
+    from tpu_ray_tracer_torch.ops import intersect, solve_kernel
+    from tpu_ray_tracer_torch.render import graphs
+    from tpu_ray_tracer_torch.render.pipeline import FAST_CONFIG
+
+    levels = {}
+    for name in SCENES:
+        scene = ttt.load_from_file(SCENE_DIR / f"{name}.yml", device=cuda)
+        with torch.no_grad(), graphs.eager():
+            before = solve_kernel.solve_roots.launches
+            got = ttt.render_image(scene, config=FAST_CONFIG)
+            assert solve_kernel.solve_roots.launches > before
+            with monkeypatch.context() as m:
+                m.setattr(intersect, "solve_roots", solve_kernel._solve_plain)
+                want = ttt.render_image(scene, config=FAST_CONFIG)
+        assert torch.equal(got, want), name
+        golden = np.load(SCENE_DIR.parent / "bench_goldens" / f"{name}.npz")["image"]
+        levels[name] = bad_pixel_fraction(got.cpu().numpy(), golden)
+    assert levels["cayley"] == pytest.approx(0.003567, abs=5e-7), levels
+
+
 def test_sharded_world_of_one_over_nccl(cuda, tmp_path):
     """``render_image_sharded`` over an NCCL process group of one rank
     (kernel route, one gather) equals the unsharded frame bit for bit, and
@@ -1073,10 +1204,10 @@ def test_graphed_pipeline_frames_equal_eager(cuda, name):
     assert pipeline._FRAMES.captures == captures + 2 and pipeline._FRAMES.over_bound == 0
 
 
-def _pipeline_fit(name, fields, cuda, soft_tau=None):
+def _pipeline_fit(name, fields, cuda, soft_tau=None, size=(64, 48)):
     from tpu_ray_tracer_torch.diff.inverse import InverseProblem
 
-    scene = _scene(name, cuda)
+    scene = _scene(name, cuda, *size)
     with torch.no_grad():
         target = ttt.render_image_kernel(scene, polish_iters=2, bounces=0)
     perturbed = dataclasses.replace(
@@ -1094,10 +1225,14 @@ def test_graphed_pipeline_fit_steps_equal_eager(cuda, case):
     losses and parameters of five eager steps with the same capturable
     Adam, bit for bit, through one capture, with no render_fwd or
     render_bwd launch; the soft steps' coefficient gathers take their
-    gradient through one ``select_rows`` launch a step, in both."""
+    gradient through one ``select_rows`` launch a step, in both, and each
+    step solves its roots in two ``solve_roots`` launches (the primary and
+    the shadow solve; the soft render's are branch A's and both branches'
+    shadows)."""
     from tpu_ray_tracer_torch.diff.inverse import extract_params, make_train_step, tau_schedule
     from tpu_ray_tracer_torch.render import graphs
     from tpu_ray_tracer_torch.render.select_kernel import select_rows
+    from tpu_ray_tracer_torch.ops.solve_kernel import solve_roots
 
     if case == "soft":
         fields, taus = ("coefs", "light_color"), tau_schedule(0.15, 0.05, 5)
@@ -1115,15 +1250,18 @@ def test_graphed_pipeline_fit_steps_equal_eager(cuda, case):
             losses = [step(params, optimizer, cam, target, tau) for tau in taus]
         return losses, params, step
 
-    s0 = select_rows.launches
+    s0, r0 = select_rows.launches, solve_roots.launches
     want, want_params, _ = run(True)
     # one row block a step, whose coefficient gather's backward is the kernel (soft)
     gathers = 5 if case == "soft" else 0
     assert select_rows.launches - s0 == gathers
+    assert solve_roots.launches - r0 == 2 * 5
     a0, b0, s0 = render_fwd.launches_save_aux, render_bwd.launches, select_rows.launches
+    r0 = solve_roots.launches
     losses, params, step = run(False)
     assert (render_fwd.launches_save_aux - a0, render_bwd.launches - b0) == (0, 0)
     assert select_rows.launches - s0 == gathers
+    assert solve_roots.launches - r0 == 2 * 5
     assert step.graphs.captures == 1 and step.graphs.over_bound == 0
     assert losses == want
     assert all(torch.equal(params[k], want_params[k]) for k in fields)

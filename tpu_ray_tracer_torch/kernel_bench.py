@@ -6,7 +6,7 @@ weigh, and the kinds of SASS instructions each kernel is made of.
                                                 [--json PATH]
 
 ``--sass-costs`` counts the SASS instructions that nvcc emits for an f32
-division, sqrtf, rsqrtf, powf and cosf on their fast path (the weights of
+division, sqrtf, rsqrtf, powf, cosf and acosf on their fast path (the weights of
 ``render/bounds.py``). ``--sass-mix`` sorts each kernel's SASS instructions
 into f32 arithmetic, compares and selects, integer and address arithmetic,
 memory, control and other. It needs one CUDA device and nvcc (with
@@ -232,13 +232,14 @@ def _fast_path_length(instrs: list) -> int:
 
 def sass_costs(work: pathlib.Path) -> dict:
     """Fast-path SASS instructions of one f32 division, sqrtf, rsqrtf,
-    powf(|x|, 1/3) and cosf: each probe kernel's instructions up to its
+    powf(|x|, 1/3), cosf and acosf: each probe kernel's instructions up to its
     first EXIT along its fast path, less those of a kernel that only adds;
     with the static count up to EXIT beside them."""
     work.mkdir(parents=True, exist_ok=True)
     src = work / "sass_probe.cu"
     body = {"base": "a[i]", "div": "a[i] / c[i]", "sqrt": "sqrtf(a[i])", "rsqrt": "rsqrtf(a[i])",
-            "pow": "powf(fabsf(a[i]), 1.0f / 3.0f)", "cos": "cosf(a[i])"}
+            "pow": "powf(fabsf(a[i]), 1.0f / 3.0f)", "cos": "cosf(a[i])",
+            "acos": "acosf(a[i])"}
     src.write_text("".join(
         f'extern "C" __global__ void probe_{k}(const float* a, const float* c, float* o) '
         f'{{ const int i = threadIdx.x; o[i] = {v} + c[i]; }}\n' for k, v in body.items()))

@@ -6,7 +6,9 @@ becomes a ``torch.autograd.Function``.
 Forward: expand F(o + t*d) per object into a cubic in t (``poly.ray_poly_coeffs``)
 and select the reference's root (``roots.min_positive_root``), optionally
 polished by Newton steps — the vectorized analogue of reference
-``intersect_ray`` (include/surface_impl.h:21-155).
+``intersect_ray`` (include/surface_impl.h:21-155). On CUDA tensors the
+forward is one kernel with the plain version's bits
+(``ops/solve_kernel.solve_roots``); on the CPU it is the plain version.
 
 Backward: rather than differentiating through Cardano/acos (numerically
 fragile near branch points), the implicit function theorem at the root:
@@ -26,18 +28,11 @@ from __future__ import annotations
 import torch
 
 from .constants import EPS, MAX_T
-from .poly import _gradient_axes, _monomials, ray_poly_coeffs
-from .roots import make_newton_polisher, min_positive_root
+from .poly import _gradient_axes, _monomials
+from .solve_kernel import solve_roots
 
 # Below this |dF/dt| the hit is grazing and dt/dtheta blows up; zero it out.
 _GRAZING_CLAMP = 1e-6
-
-
-def _solve(coefs, origin, dir, polish_iters):
-    # the coefficients pass straight in, so that the solve can drop them
-    # once spent
-    return min_positive_root(*ray_poly_coeffs(coefs, origin, dir),
-                             make_newton_polisher(coefs, origin, dir, polish_iters))
 
 
 def _intersect_bwd(res, g, needs):
@@ -80,11 +75,12 @@ def _intersect_bwd(res, g, needs):
 
 
 class _IntersectAll(torch.autograd.Function):
-    """The solve forward, the IFT rule of ``_intersect_bwd`` backward."""
+    """The solve forward (``solve_roots``: the kernel on the card, the plain
+    version on the CPU), the IFT rule of ``_intersect_bwd`` backward."""
 
     @staticmethod
     def forward(ctx, coefs, origin, dir, polish_iters):
-        t = _solve(coefs, origin, dir, polish_iters)
+        t = solve_roots(coefs, origin, dir, polish_iters)
         ctx.save_for_backward(coefs, origin, dir, t)
         return t
 

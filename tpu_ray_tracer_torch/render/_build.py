@@ -27,6 +27,17 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "tpu_ray_tracer_tor
 # -fmad=true contracts multiply-adds into FMAs.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-fmad=true", "-Xptxas", "-v")
+# Sources that give their plain version's bits, one aten operation at a time:
+# built without contracting multiply-adds.
+_UNCONTRACTED = ("solve_roots",)
+
+
+def nvcc_flags(name: str) -> tuple:
+    """The flags ``csrc/<name>.cu`` is built with: ``NVCC_FLAGS``, with
+    -fmad=false for a source in ``_UNCONTRACTED``."""
+    if name in _UNCONTRACTED:
+        return tuple("-fmad=false" if f == "-fmad=true" else f for f in NVCC_FLAGS)
+    return NVCC_FLAGS
 
 # ctypes signatures of the C launchers, by library name
 _SIGNATURES = {
@@ -58,6 +69,17 @@ _SIGNATURES = {
                          + [ctypes.c_int] * 3 + [ctypes.c_double, ctypes.c_void_p],
                          ctypes.c_int),
     },
+    "solve_roots": {
+        # coefs origin dir out, layout[3 * MAX_DIMS + 2] | dims rays n_obj
+        # coef strides polish, coefs f64, rays f64 | stream
+        "trt_solve_roots": ([ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_longlong),
+                                                     ctypes.c_int, ctypes.c_longlong,
+                                                     ctypes.c_int, ctypes.c_longlong,
+                                                     ctypes.c_longlong, ctypes.c_int,
+                                                     ctypes.c_int, ctypes.c_int,
+                                                     ctypes.c_void_p],
+                            ctypes.c_int),
+    },
     "select_rows": {
         # rows n c f64, out[3] (placement, blocks, values of scratch) -> CUDA error
         "trt_select_rows_plan": ([ctypes.c_longlong] + [ctypes.c_int] * 3
@@ -84,11 +106,12 @@ def _nvcc() -> str:
 
 def compile_source(source: Path, out: Path) -> Path:
     """Compile ``source`` (a ``.cu`` file, its headers beside it) with
-    ``NVCC_FLAGS`` into the library ``out``; the compiler's report
-    (registers, spills per kernel) is kept beside it in ``ptxas.txt``."""
+    ``nvcc_flags`` of its name into the library ``out``; the compiler's
+    report (registers, spills per kernel) is kept beside it in
+    ``ptxas.txt``."""
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
+    proc = subprocess.run([_nvcc(), *nvcc_flags(source.stem), "-o", str(tmp), str(source)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {source}:\n{proc.stdout}{proc.stderr}")
@@ -101,7 +124,7 @@ def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless a build of the same sources and
     flags exists; return the library's path."""
     source = _CSRC / f"{name}.cu"
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(nvcc_flags(name)).encode())
     for path in [source, *sorted(_CSRC.glob("*.cuh"))]:
         digest.update(path.name.encode())
         digest.update(path.read_bytes())

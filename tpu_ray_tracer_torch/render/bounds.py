@@ -14,9 +14,9 @@ backward, ...) is counted once by running its plain PyTorch version
 (``render/fwd_kernel.py``, ``render/bwd_kernel.py``, which follow the
 kernels operation for operation) on one pixel under a dispatch mode that
 counts every f32 operation: add, sub, mul and min/max count 1 (so an FMA
-counts 2), and division, sqrt, rsqrt, pow and cos count the instructions
-nvcc emits for them on their fast path (``SASS_COST``); sign tests, selects,
-abs and negation count 0. ``fwd_work`` and ``bwd_work`` combine the
+counts 2), and division, sqrt, rsqrt, pow, cos and acos count the
+instructions nvcc emits for them on their fast path (``SASS_COST``); sign
+tests, selects, abs and negation count 0. ``fwd_work`` and ``bwd_work`` combine the
 components with the branch shares of the call's own aux, replayed by the
 backward's Phase A (``bwd_kernel.chain_states``): which slot each stage hit,
 which lights face the hit point, which are occluded, whether the stage's
@@ -34,30 +34,37 @@ test for a lit light.
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from ..models.surface import N_COEFS
 from ..ops.constants import EPS, SHADOW_BIAS
+from ..ops.poly import ray_poly_coeffs
+from ..ops.roots import make_newton_polisher, min_positive_root
 from . import bwd_kernel as bk
 from . import fwd_kernel as fk
 
 # NVIDIA H100 SXM data sheet: f32 outside the tensor cores, HBM3 rate.
 H100_F32_OPS_PER_S = 67e12
 H100_BYTES_PER_S = 3.35e12
+# One f32 instruction a lane a cycle: the data sheet's rate counts an FMA as
+# 2. A source built with -fmad=false (csrc/solve_roots.cu) issues each
+# multiply and add on its own, so its operations' floor is at this rate.
+H100_F32_ISSUE_PER_S = H100_F32_OPS_PER_S / 2
 
 # SASS instructions of each math function's fast path on sm_90a with
 # -fmad=true and no fast math, from the probe of
 # `python -m tpu_ray_tracer_torch.kernel_bench --sass-costs` (nvcc 12.9):
 # each probe kernel's instructions up to its EXIT, skipping the slow paths
 # it branches over (cosf's large-argument reduction loop: 141 instructions
-# with it; the division's and sqrtf's subroutine calls: 13 and 14), less
-# those of a kernel that only adds.
-SASS_COST = {"div": 10, "sqrt": 10, "rsqrt": 4, "pow": 81, "cos": 32}
+# with it; the division's and sqrtf's subroutine calls: 13 and 14; acosf has
+# none), less those of a kernel that only adds.
+SASS_COST = {"div": 10, "sqrt": 10, "rsqrt": 4, "pow": 81, "cos": 32, "acos": 26}
 
 _SASS_OPS = {"div": "div", "reciprocal": "div", "sqrt": "sqrt", "rsqrt": "rsqrt",
-             "pow": "pow", "cos": "cos"}
+             "pow": "pow", "cos": "cos", "acos": "acos"}
 _UNIT = ("add", "sub", "rsub", "mul", "maximum", "minimum", "clamp", "clamp_min",
          "clamp_max", "index_add", "sum")
 
@@ -95,10 +102,11 @@ def count_ops(fn, *args, **kwargs) -> int:
     return counter.ops
 
 
-def bound_ms(ops: float, n_bytes: float):
+def bound_ms(ops: float, n_bytes: float, ops_per_s: float = H100_F32_OPS_PER_S):
     """(least time in ms, "operations" or "bytes") on an H100 at its
-    published f32 and memory peaks."""
-    t_ops, t_bytes = ops / H100_F32_OPS_PER_S, n_bytes / H100_BYTES_PER_S
+    published f32 and memory peaks, or at ``ops_per_s`` operations a
+    second (``H100_F32_ISSUE_PER_S`` for a source without FMAs)."""
+    t_ops, t_bytes = ops / ops_per_s, n_bytes / H100_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -476,3 +484,52 @@ def vjp_work(scene, camera) -> dict:
     return {"ops": ops,
             "bytes": 4 * total + 8 * n_obj + _nbytes(angles) + _nbytes(grad_tensors(scene,
                                                                                     camera))}
+
+
+# --- the pipeline's root solve (csrc/solve_roots.cu) ---
+
+@functools.cache
+def solve_components(polish_iters: int) -> dict:
+    """f32 operations of each piece of one (ray, object) solve (counted once
+    per process from the plain version, ``ops/solve_kernel._solve_plain``):
+    the expansion of F(o + t d) into its four t-coefficients; every seed of
+    ``min_positive_root`` (the cubic's Cardano and three trigonometric
+    roots, the quadratic's two roots and the linear root); the quadratic's
+    seeds alone; one candidate's Newton polish with its residual test."""
+    x = torch.full((1, 1), 0.3)
+    coefs, o = torch.full((1, N_COEFS), 0.3), torch.full((1, 3), 0.3)
+    polish = make_newton_polisher(coefs, o, o, polish_iters)
+
+    def quadratic(t2, t1, t0):
+        sqrt_disc = torch.sqrt(torch.clamp(t1 * t1 - 4.0 * t2 * t0, min=0.0))
+        return (-t1 - sqrt_disc) / (2.0 * t2), (-t1 + sqrt_disc) / (2.0 * t2)
+
+    return {"expansion": count_ops(ray_poly_coeffs, coefs, o, o),
+            "seeds": count_ops(min_positive_root, x, x, x, x),
+            "quadratic": count_ops(quadratic, x, x, x),
+            "polish": count_ops(polish, x) if polish is not None else 0}
+
+
+def solve_work(coefs, origin, dir, polish_iters: int) -> dict:
+    """{"ops", "bytes"} of one ``solve_roots`` call on these tensors; the
+    kernel is built without FMAs, so its ``bound_ms`` takes
+    ``ops_per_s=H100_F32_ISSUE_PER_S``. Each
+    entry expands its cubic; a cubic entry (|t3| > EPS, the classes from the
+    plain expansion of these inputs) computes every seed and, polished,
+    polishes six candidates; a quadratic one its two roots and, polished,
+    polishes both; a linear one divides once. Bytes: the coefficients, the
+    distinct elements of origin and dir (a broadcast axis read once) and the
+    root table written once."""
+    c = solve_components(polish_iters)
+    t3, t2, t1, _ = ray_poly_coeffs(coefs, origin, dir)
+    cubic = int((t3.abs() > EPS).sum())
+    quad = int(((t3.abs() <= EPS) & (t2.abs() > EPS)).sum())
+    lin = int(((t3.abs() <= EPS) & (t2.abs() <= EPS) & (t1.abs() > EPS)).sum())
+    ops = (t3.numel() * c["expansion"] + cubic * (c["seeds"] + 6 * c["polish"])
+           + quad * (c["quadratic"] + 2 * c["polish"]) + lin * SASS_COST["div"])
+
+    def distinct(t):
+        return t.element_size() * math.prod(n for n, s in zip(t.shape, t.stride()) if s != 0)
+
+    return {"ops": ops, "bytes": distinct(coefs) + distinct(origin) + distinct(dir)
+            + t3.numel() * t3.element_size()}

@@ -64,6 +64,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..ops.solve_kernel import solve_roots
 from ..utils.timing import span
 from .bwd_kernel import render_bwd
 from .fwd_kernel import render_fwd
@@ -76,8 +77,10 @@ from .select_kernel import select_rows
 MAX_GRAPHS = 16
 # Device memory the graphs of one cache may keep (``GraphCache.bytes``): a
 # kernel frame's graph keeps ~14-70 MiB, a plain pipeline frame's or fit
-# step's ~0.2-1.5 GiB, the 33-light 640x480 gradient's ~5.2 GiB, and the
-# warm-up of 20spheres 800x600 in one shot ~29 GiB (chip_smoke.py 9e, 9f).
+# step's ~0.1-0.9 GiB, the 33-light 640x480 gradient's ~1.4 GiB, 20spheres
+# 800x600 in one shot ~2.0 GiB, its key's warm-up and its graph alike (5.2
+# and ~29 GiB while the root solve was plain; chip_smoke.py 9e, 9f,
+# pipeline_profile.py).
 MAX_GRAPH_BYTES = 8 << 30
 
 
@@ -99,6 +102,7 @@ def _counters() -> dict:
             "pack_frame": (pack_tables.__dict__, "launches"),
             "pack_vjp": (pack_vjp.__dict__, "launches"),
             "select_rows": (select_rows.__dict__, "launches"),
+            "solve_roots": (solve_roots.__dict__, "launches"),
             **{f"render_fwd.{k}": (variants, k) for k in variants},
             **{f"render_bwd.{k}": (placements, k) for k in placements}})
     return _TABLE[3]

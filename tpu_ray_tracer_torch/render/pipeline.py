@@ -34,7 +34,7 @@ On the card a frame without a recorded gradient replays a CUDA graph of
 ``_render_image`` (``render/graphs.py``), the counterpart of the JAX
 package's ``_render_image_jit``: its key is the config and the tables'
 shapes, dtypes and devices, and a frame whose warm-up holds more than
-``graphs.MAX_GRAPH_BYTES`` (20spheres 800x600 in one shot) stays eager.
+``graphs.MAX_GRAPH_BYTES`` stays eager.
 """
 
 from __future__ import annotations
