@@ -295,13 +295,6 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def nvidia_smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout
-    return out.strip().splitlines()[0]
-
-
 def nvcc_version(nvcc: str) -> str:
     out = subprocess.run([nvcc, "--version"], capture_output=True, text=True,
                          check=True, timeout=60).stdout
@@ -674,12 +667,13 @@ def main() -> int:
     from tpu_ray_tracer_torch.render.pack_kernel import pack_tables, pack_vjp
     from tpu_ray_tracer_torch.render.select_kernel import select_rows
     from tpu_ray_tracer_torch.ops.solve_kernel import solve_roots
+    from tpu_ray_tracer_torch.utils.device import smi_line
 
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
 
     # --- 1. device ---
-    smi = nvidia_smi_line()
+    smi = smi_line()
     log(f"[device] {smi} | {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()} "
         f"| torch {torch.__version__} CUDA {torch.version.cuda} "
         f"| {nvcc_version(_build._nvcc())}")
@@ -1657,7 +1651,7 @@ def main() -> int:
                 f"{DEVICE_ONLY_CALLS} calls: {ms:.4f} ms ({smi})")
     # one multi-tensor copy of a frame's 11 inputs against one copy each
     # (the graphs used last: dingdong's forward and fwd+bwd frames)
-    fwd_entry = [e for e in frames_cache.graphs() if isinstance(e, graphs.Graph)][-1]
+    fwd_entry = [e for e in frames_cache.graphs() if e.backward is None][-1]
     src = [t.clone() for t in fwd_entry.inputs]
     copy_ms = {
         "torch._foreach_copy_": timed_ms(
@@ -1666,11 +1660,11 @@ def main() -> int:
             lambda k: [d.copy_(t) for d, t in zip(fwd_entry.inputs, src)], GATE_FRAMES)}
     log("[graphs-time] a frame's 11 inputs into the graph's buffers: " + ", ".join(
         f"{k} {v:.4f} ms" for k, v in copy_ms.items()) + f" a call ({smi})")
-    grad_entry = [e for e in frames_cache.graphs() if isinstance(e, kernel_backend._GradFrame)][-1]
-    step_entry = graph_fits["dingdong 1280x720 light_color"].graphs()[0]
-    log(f"[graphs] launches each replay adds: forward frame {fwd_entry.captured.counts}; "
-        f"gradient frame forward {grad_entry.fwd.counts}, backward {grad_entry.bwd.counts}; "
-        f"fit step {step_entry.captured.counts}")
+    grad_entry = [e for e in frames_cache.graphs() if e.backward is not None][-1]
+    step_entry = graph_fits["dingdong 1280x720 light_color"].graphs()[0].graph
+    log(f"[graphs] launches each replay adds: forward frame {fwd_entry.forward.counts}; "
+        f"gradient frame forward {grad_entry.forward.counts}, backward "
+        f"{grad_entry.backward.counts}; fit step {step_entry.forward.counts}")
     log(f"[graphs] capture cost (host ms): frames "
         f"{', '.join(f'{t * 1e3:.1f}' for t in frames_cache.capture_s)}; fit steps "
         + "; ".join(f"{k} {', '.join(f'{t * 1e3:.1f}' for t in g.capture_s)}"

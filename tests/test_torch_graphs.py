@@ -21,9 +21,10 @@ import tpu_ray_tracer_torch as ttt
 from tpu_ray_tracer_torch.diff.inverse import (InverseProblem, extract_params, make_train_step,
                                                param_tensors)
 from tpu_ray_tracer_torch.models.surface import COEF_INDEX
-from tpu_ray_tracer_torch.render import graphs, kernel_backend as kb
+from tpu_ray_tracer_torch.render import graphs, kernel_backend as kb, pipeline
 from tpu_ray_tracer_torch.render.bwd_kernel import render_bwd
 from tpu_ray_tracer_torch.render.fwd_kernel import render_fwd, render_fwd_plain
+from tpu_ray_tracer_torch.utils import launches
 
 from conftest import scene_path
 
@@ -78,7 +79,7 @@ class FakeGraphs:
         before = graphs.launch_counts()
         with graphs.eager():  # as at the capture
             new = fn()
-        graphs._restore(before)
+        launches.restore(before)
         for static, value in zip(graphs._tensors(out), graphs._tensors(new)):
             static.copy_(value)
 
@@ -185,7 +186,7 @@ def test_capture_takes_back_counts_and_replay_adds_them(fake):
     assert fake.calls == ["warmup"]
     entry = graphs.Graph(torch.device("cpu"), body, [x])
     assert graphs.launch_counts() == after_warmup  # the capture took its counts back
-    assert entry.captured.counts == {"render_fwd": 1, "render_fwd.main": 1, "render_bwd": 2,
+    assert entry.forward.counts == {"render_fwd": 1, "render_fwd.main": 1, "render_bwd": 2,
                                      "render_bwd.warp.shared": 2}
     out = call(x + 1)  # second use: capture, then replay
     assert fake.calls == ["warmup", "capture", "capture", "replay"]
@@ -198,6 +199,71 @@ def test_capture_takes_back_counts_and_replay_adds_them(fake):
     assert cache.captures == 1 and len(cache) == 1
 
 
+def test_a_registered_counter_is_taken_back_and_replayed(fake, monkeypatch):
+    """A launch counter that a wrapper registers (``utils/launches.py``),
+    which ``render/graphs.py`` does not name, a plain counter and a
+    breakdown dict: the capture takes its increments back and records
+    them, and each replay adds them."""
+    monkeypatch.setattr(launches, "_WHERE", dict(launches._WHERE))
+
+    def wrapper(t):
+        wrapper.launches += 1
+        wrapper.launches_by_kind["a"] += 2
+        return t + 1
+
+    wrapper.launches, wrapper.launches_by_kind = 0, {"a": 0, "b": 0}
+    launches.register("probe", wrapper, "launches")
+    launches.register("probe", wrapper, "launches_by_kind")
+    graph = graphs.Graph(torch.device("cpu"), wrapper, [torch.zeros(2)])
+    assert graph.forward.counts == {"probe": 1, "probe.a": 2}
+    assert wrapper.launches == 0 and wrapper.launches_by_kind == {"a": 0, "b": 0}
+    for k in (1, 2):
+        assert torch.equal(graph([torch.full((2,), float(k))]), torch.full((2,), k + 1.0))
+        counts = graphs.launch_counts()
+        assert (counts["probe"], counts["probe.a"], counts["probe.b"]) == (k, 2 * k, 0)
+        assert wrapper.launches == k and wrapper.launches_by_kind == {"a": 2 * k, "b": 0}
+
+
+# The per-tensor half of each caller's key as each built it before
+# ``graphs.signature``: the frame's, the pipeline frame's and the step's
+PARENT_SIGNATURE = {
+    "frame": lambda ts, grad: tuple((tuple(t.shape), t.dtype, t.device,
+                                     grad and t.requires_grad) for t in ts),
+    "pipeline": lambda ts, grad: tuple((tuple(t.shape), t.dtype, t.device) for t in ts),
+    "step": lambda ts, grad: tuple((tuple(t.shape), t.dtype) for t in ts),
+}
+
+
+@pytest.mark.parametrize("caller", sorted(PARENT_SIGNATURE))
+def test_signature_keeps_which_calls_share_a_graph(caller):
+    """``graphs.signature`` against each key builder's own per-tensor key
+    before it, on the builder's tensors: other values, another shape,
+    another dtype and a tensor that requires grad. Two calls share a graph
+    under the one exactly where they did under the other (the frame's
+    forward and differentiable keys alike)."""
+    scene, cam = _scene(), _camera()
+    if caller == "frame":
+        tensors = kb._frame_tensors(scene, cam)
+    elif caller == "pipeline":
+        tensors = pipeline._frame_tensors(scene, cam)
+    else:
+        params = extract_params(scene, ("coefs", "light_color"))
+        tensors = [torch.zeros(scene.height, scene.width, 3), cam.position, cam.yaw_deg,
+                   cam.pitch_deg, torch.tensor(0.15, dtype=torch.float64),
+                   *param_tensors(params)]
+    i = next(i for i, t in enumerate(tensors) if t.dim() > 0 and t.is_floating_point())
+    variants = [tensors, [t.detach().clone() + (t.is_floating_point()) for t in tensors]]
+    for edit in (lambda t: t[:-1], lambda t: t.double(),
+                 lambda t: t.detach().clone().requires_grad_()):
+        variants.append(tensors[:i] + [edit(tensors[i])] + tensors[i + 1:])
+    for grad in ((False, True) if caller == "frame" else (False,)):
+        old = [PARENT_SIGNATURE[caller](ts, grad) for ts in variants]
+        new = [graphs.signature(ts, grad) for ts in variants]
+        for a in range(len(variants)):
+            for b in range(len(variants)):
+                assert (old[a] == old[b]) == (new[a] == new[b]), (grad, a, b)
+
+
 def test_outputs_are_fresh_and_cache_is_bounded(fake, monkeypatch):
     """A returned tensor is not the graph's output: the next replay leaves
     it unchanged. The cache keeps at most ``graphs.MAX_GRAPHS`` keys,
@@ -208,7 +274,7 @@ def test_outputs_are_fresh_and_cache_is_bounded(fake, monkeypatch):
     second = graph([torch.full((3,), 5.0)])
     assert all(torch.equal(a, b) for a, b in zip(first, kept))
     assert torch.equal(second[0], torch.full((3,), 6.0))
-    assert first[0].data_ptr() != graph.captured.outputs[0].data_ptr()
+    assert first[0].data_ptr() != graph.forward.outputs[0].data_ptr()
     monkeypatch.setattr(graphs, "MAX_GRAPHS", 2)
     cache = graphs.GraphCache()
     made = []
@@ -226,9 +292,9 @@ def test_capture_holds_memoised_tables(fake):
     graph = graphs.Graph(torch.device("cpu"),
                          lambda: kb.pack_frame(scene, _camera(), 0, scene.height)[0][0], [])
     slots = kb._slot_tables(scene.coefs)
-    assert any(h is slots for h in graph.captured.held)
+    assert any(h is slots for h in graph.forward.held)
     kb._MEMO.clear()
-    assert any(all(a is b for a, b in zip(h, slots)) for h in graph.captured.held
+    assert any(all(a is b for a, b in zip(h, slots)) for h in graph.forward.held
                if isinstance(h, tuple))
     assert graphs.hold("x") == "x"  # outside a capture nothing is held
 

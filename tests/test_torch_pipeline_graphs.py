@@ -27,6 +27,7 @@ from tpu_ray_tracer_torch.models import surface as tsurface
 from tpu_ray_tracer_torch.models.scene import Object
 from tpu_ray_tracer_torch.ops import camera as camera_ops
 from tpu_ray_tracer_torch.render import graphs, kernel_backend as kb, pipeline
+from tpu_ray_tracer_torch.utils import launches
 
 from conftest import scene_path
 from test_torch_graphs import FakeGraphs, nbytes
@@ -72,7 +73,7 @@ class GraphFake(FakeGraphs):
         before = graphs.launch_counts()
         with graphs.eager(), torch.enable_grad():
             new = fn()
-        graphs._restore(before)
+        launches.restore(before)
         for static, value in zip(graphs._tensors(out), graphs._tensors(new)):
             with torch.no_grad():
                 static.copy_(value)
@@ -264,6 +265,35 @@ def test_pipeline_grad_render_through_a_fake_graph(graphed, case):
     assert kb._FRAMES.captures == 1
 
 
+def test_a_backward_after_a_later_forward_replays_its_own(graphed):
+    """A differentiable graph's pool holds one forward's saved tensors: the
+    backward of a frame whose forward a later frame replaced replays that
+    forward again first, and gives the eager gradient bit for bit, unless
+    an input was modified in place in between, which raises."""
+    scene = _many_lights()
+    leaf = scene.light_color.detach().clone().requires_grad_()
+    grad_scene = dataclasses.replace(scene, light_color=leaf)
+    cams = [_camera(90.0 + 0.7 * k, 4.0) for k in range(4)]
+    for cam in cams[:2]:  # the warm-up, then the capture
+        ttt.render_image_kernel(grad_scene, cam).sum().backward()
+    first = ttt.render_image_kernel(grad_scene, cams[2])
+    ttt.render_image_kernel(grad_scene, cams[3])
+    leaf.grad = None
+    first.sum().backward()
+    got = leaf.grad
+    with graphs.eager():
+        want = torch.autograd.grad(ttt.render_image_kernel(grad_scene, cams[2]).sum(), leaf)[0]
+    assert torch.equal(got, want)
+    first = ttt.render_image_kernel(grad_scene, cams[2])
+    ttt.render_image_kernel(grad_scene, cams[3])
+    with torch.no_grad():
+        leaf.mul_(1.0)
+    with pytest.raises(RuntimeError, match="modified in place between the call's forward and "
+                                           "its backward"):
+        first.sum().backward()
+    assert kb._FRAMES.captures == 1
+
+
 def test_byte_bound_runs_a_large_key_eagerly(graphed, monkeypatch):
     """With ``MAX_GRAPH_BYTES`` below a frame's warm-up bytes the key is
     never captured: its later calls run eagerly, on the current stream, and
@@ -295,5 +325,5 @@ def test_byte_bound_runs_a_large_key_eagerly(graphed, monkeypatch):
     # "c" needed room: "a", the least recently used graph, was dropped
     assert [g.inputs[0].shape[0] for g in cache.graphs()] == [12, 6]
     assert cache.bytes() == frame_bytes + frame_bytes // 2 == nbytes(
-        [g.captured.outputs for g in cache.graphs()])
+        [g.forward.outputs for g in cache.graphs()])
     assert cache.over_bound == 0

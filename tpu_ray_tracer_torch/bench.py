@@ -77,6 +77,7 @@ from .render.bwd_kernel import render_bwd
 from .render.fwd_kernel import render_fwd
 from .render.kernel_backend import pack_frame, render_image_kernel
 from .render.reference_cpu import render_image_np
+from .utils.device import smi_line
 
 REPO = Path(__file__).resolve().parents[1]
 BASELINE_MRAYS = 36.864  # 921600 px / 25 ms (BASELINE.md, derived row 1)
@@ -149,21 +150,27 @@ def frame_grads(template, params: dict, camera, bounces: int) -> dict:
     return dict(zip(params, grads))
 
 
+def sweep_graph(device, body) -> graphs.Captured:
+    """The CUDA graph of a sweep ``body()``: its eager warm-up on a side
+    stream, its capture, one warm replay."""
+    graphs.warmup(device, body)
+    sweep = graphs.capture(device, body)
+    graphs.replay(sweep)
+    torch.cuda.synchronize(device)
+    return sweep
+
+
 def _sweep_s(device, body, warmup):
-    """(seconds, outputs) of one sweep ``body()``. On the card the body is
-    captured as one CUDA graph after its eager warm-up on a side stream,
-    replayed once warm and once between CUDA events, and the outputs are a
-    fresh copy of that replay's; on the CPU ``warmup()`` runs, then the body
-    under the host clock."""
+    """(seconds, outputs) of one sweep ``body()``. On the card the body's
+    graph (``sweep_graph``) is replayed once more between CUDA events, and
+    the outputs are a fresh copy of that replay's; on the CPU ``warmup()``
+    runs, then the body under the host clock."""
     if device.type != "cuda":
         warmup()
         t0 = time.perf_counter()
         out = body()
         return time.perf_counter() - t0, out
-    graphs.warmup(device, body)
-    sweep = graphs.capture(device, body)
-    graphs.replay(sweep)
-    torch.cuda.synchronize(device)
+    sweep = sweep_graph(device, body)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     graphs.replay(sweep)
@@ -316,10 +323,7 @@ def run_info(device) -> dict:
     """The aux keys that name what ran: ``forward_backend``, ``device`` (the
     card's name and power limit as nvidia-smi gives them) and ``versions``."""
     if device.type == "cuda":
-        smi = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, check=True, timeout=60).stdout
-        where, backend = smi.strip().splitlines()[torch.cuda.current_device()], "cuda"
+        where, backend = smi_line(torch.cuda.current_device()), "cuda"
     else:
         where, backend = "cpu", "plain"
     return {"forward_backend": backend, "device": where,

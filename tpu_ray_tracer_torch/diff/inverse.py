@@ -311,8 +311,8 @@ def make_train_step(problem: InverseProblem, group=None):
 
     On the card the whole step replays one CUDA graph, the counterpart of
     the jitted ``train_step`` (``render/graphs.py``), on either route. Its
-    key is the route's statics, the inputs' and parameters' shapes and
-    dtypes and the optimizer's hyper-parameters. On the kernel route the
+    key is the route's statics, the inputs' and parameters' shapes, dtypes
+    and devices and the optimizer's hyper-parameters. On the kernel route the
     statics are those of the coefficients the step renders with, derived
     before every step from the current iterate (a step whose update changes
     them replays, or captures, the graph of the new key); on the pipeline
@@ -327,14 +327,14 @@ def make_train_step(problem: InverseProblem, group=None):
     captures anew. A step whose parameters have no optimizer state yet (a
     new optimizer, or new parameters) runs eagerly as a warm-up, since a
     capture would record Adam's zero-fill of that state. The target and a camera that is not a parameter are
-    copied into the graph's inputs. After a replay ``.grad`` holds the
+    copied into the graph's inputs (``graphs.Graph``). After a replay ``.grad`` holds the
     step's gradient, in the graph's memory, and every parameter's version
     counter is bumped as an eager update bumps it.
 
     The step stays eager on the CPU, with a process group of more than one
     rank (gloo's all-reduce cannot be captured, NCCL's across cards is
-    unverified), with an optimizer that is not ``capturable``, with a camera
-    that requires grad without being a parameter, inside ``graphs.eager()``,
+    unverified), with an optimizer that is not ``capturable``, with a target
+    or a non-parameter camera that requires grad, inside ``graphs.eager()``,
     and where its key's warm-up held more than ``graphs.MAX_GRAPH_BYTES``
     (counted in the cache's ``over_bound``). ``train_step.graphs`` is its
     ``GraphCache``.
@@ -363,7 +363,7 @@ def make_train_step(problem: InverseProblem, group=None):
                                 else [camera.position, camera.yaw_deg, camera.pitch_deg])
                 graphed = (loss_fn.n_ranks == 1 and graphs.active(target.device)
                            and all(g.get("capturable") for g in optimizer.param_groups)
-                           and not any(t.requires_grad for t in fixed_camera))
+                           and not any(t.requires_grad for t in [target, *fixed_camera]))
                 if graphed:
                     if loss_fn.use_kernel:  # the host half of the frame, outside any capture
                         _slot_tables(params.get("coefs", loss_fn.template.coefs))
@@ -388,13 +388,28 @@ def make_train_step(problem: InverseProblem, group=None):
                                   tau[0] if tau else None)
 
             def make():
-                return _StepGraph(target.device, body, inputs, tensors, optimizer)
+                # so that the captured backward allocates the gradients in
+                # the graph's pool, where every replay writes them
+                optimizer.zero_grad(set_to_none=True)
+                graph = graphs.Graph(target.device, body, inputs)
+                grads = [t.grad for t in tensors]
+
+                def replay(inputs) -> float:
+                    loss = graph.replay(inputs)
+                    for t, g in zip(tensors, grads):
+                        t.grad = g
+                        torch.autograd.graph.increment_version(t)  # the replay updated it in place
+                    with span("trt.step.wait"):
+                        return float(loss)
+
+                replay.graph, replay.nbytes = graph, graph.nbytes
+                replay.guard = _step_guard(tensors, optimizer)
+                return replay
 
             return float(cache.run(
                 key, target.device, make,
-                lambda: eager_step(params, optimizer, camera, target, tau), inputs, tensors,
-                warm=warm,
-                current=lambda graph: graph.guard == _step_guard(tensors, optimizer)))
+                lambda: eager_step(params, optimizer, camera, target, tau), inputs, warm=warm,
+                current=lambda replay: replay.guard == _step_guard(tensors, optimizer)))
 
     train_step.graphs = cache
     return train_step
@@ -402,7 +417,7 @@ def make_train_step(problem: InverseProblem, group=None):
 
 def _step_key(loss_fn: Loss, params: dict, optimizer, inputs: list) -> tuple:
     """The key of a train step's graph (``make_train_step``): the route's
-    statics, the inputs' and parameters' shapes and dtypes, and the
+    statics, the inputs' and parameters' ``graphs.signature``, and the
     optimizer's hyper-parameters. ``inputs`` are the graph's inputs: the
     target, a camera that is not a parameter, and the soft temperature."""
     config = loss_fn.problem.config
@@ -413,8 +428,7 @@ def _step_key(loss_fn: Loss, params: dict, optimizer, inputs: list) -> tuple:
                  loss_fn.pair_kinds, config.geom_dtype, config.polish_iters)
     hyper = tuple(tuple((k, v) for k, v in sorted(g.items()) if k != "params")
                   for g in optimizer.param_groups)
-    return (route, tuple((tuple(t.shape), t.dtype) for t in inputs + param_tensors(params)),
-            hyper)
+    return (route, graphs.signature(inputs + param_tensors(params)), hyper)
 
 
 def _tau_tensor(tau, device) -> torch.Tensor:
@@ -432,27 +446,6 @@ def _step_guard(tensors, optimizer) -> tuple:
     return (tuple(t.data_ptr() for t in tensors)
             + tuple(v.data_ptr() for t in tensors for v in optimizer.state.get(t, {}).values()
                     if isinstance(v, torch.Tensor)))
-
-
-class _StepGraph(graphs.Graph):
-    """The graph of one train step. The gradients are set to None before
-    the capture, so that the captured backward allocates them in the graph's
-    pool, where every replay writes them."""
-
-    def __init__(self, device, body, inputs, tensors, optimizer):
-        optimizer.zero_grad(set_to_none=True)
-        super().__init__(device, body, inputs)
-        self.grads = [t.grad for t in tensors]
-        self.guard = _step_guard(tensors, optimizer)
-
-    def __call__(self, inputs, tensors) -> float:
-        self.load(inputs)
-        graphs.replay(self.captured)
-        for t, g in zip(tensors, self.grads):
-            t.grad = g
-            torch.autograd.graph.increment_version(t)  # the replay updated it in place
-        with span("trt.step.wait"):
-            return float(self.captured.outputs)
 
 
 def pad_target(target, height: int) -> torch.Tensor:

@@ -20,22 +20,21 @@ The host's side of a user's graphed call and fit step is the benchmark's
 traced run (``python3 -m port_bench.run --trace 1``): the port's spans and
 the ``program_*`` metrics that read them.
 
-It uses only what the port had before its packing became kernels, so a
-checkout of an earlier commit runs it with this file copied in; the
-packing kernels alone are timed by ``chip_smoke.py`` (phase 5b). Needs one
-CUDA device; prints one line a reading and, as its last line, one JSON
+The packing kernels alone are timed by ``chip_smoke.py`` (phase 5b). Needs
+one CUDA device; prints one line a reading and, as its last line, one JSON
 object.
 """
 
 from __future__ import annotations
 
-import collections
 import json
 import os
-import subprocess
 import sys
 
 import torch
+
+from .utils.device import smi_line
+from .utils.timing import events_by_name
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FRAMES = 32       # the bench's sweep (TRT_BENCH_FRAMES)
@@ -46,36 +45,18 @@ def _device_ops(fn, frames: int) -> dict:
     """One ``fn()`` under torch.profiler: the device's operations by name
     (count and device us, each a frame), their number and device ms a
     frame."""
-    from torch.autograd import DeviceType
-
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    by_name = collections.defaultdict(lambda: [0, 0.0])
-    for e in device:
-        by_name[e.name][0] += 1
-        by_name[e.name][1] += e.time_range.elapsed_us()
+    by_name = events_by_name(prof)
     ops = sorted(((name, n / frames, us / frames) for name, (n, us) in by_name.items()),
                  key=lambda t: -t[2])
-    return {"ops_a_frame": len(device) / frames,
-            "device_ms_a_frame": sum(e.time_range.elapsed_us() for e in device) / 1e3 / frames,
+    return {"ops_a_frame": sum(n for n, _ in by_name.values()) / frames,
+            "device_ms_a_frame": sum(us for _, us in by_name.values()) / 1e3 / frames,
             "by_name": [{"name": name[:120], "count": n, "us": us}
                         for name, n, us in ops[:TOP_OPS]]}
-
-
-def _sweep_graph(device, body):
-    """The bench's sweep graph (``bench._sweep_s``): the eager warm-up on a
-    side stream, the capture, one warm replay."""
-    from .render import graphs
-
-    graphs.warmup(device, body)
-    sweep = graphs.capture(device, body)
-    graphs.replay(sweep)
-    torch.cuda.synchronize(device)
-    return sweep
 
 
 def profile_ops(dev, scene) -> dict:
@@ -105,7 +86,7 @@ def profile_ops(dev, scene) -> dict:
     out = {}
     for what, body, frames in (("forward", fwd_sweep, FRAMES + 1),
                                ("fwd+bwd", fwdbwd_sweep, FRAMES)):
-        sweep = _sweep_graph(dev, body)
+        sweep = bench.sweep_graph(dev, body)
         out[what] = _device_ops(lambda: graphs.replay(sweep), frames)
         del sweep
     return out
@@ -127,12 +108,6 @@ def bench_stages(scene) -> dict:
             "kernel_ms_bwd_dingdong": fwdbwd["kernel_ms_bwd"]}
 
 
-def _power_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True, timeout=60).stdout
-    return out.strip().splitlines()[0]
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("frame_profile: needs a CUDA device (torch.cuda.is_available() is "
@@ -140,7 +115,7 @@ def main() -> int:
     from .models.loader import load_from_file
 
     dev = torch.device("cuda", 0)
-    smi = _power_line()
+    smi = smi_line()
     scene = load_from_file(os.path.join(REPO, "scenes", "dingdong.yml"), device=dev)
     result = {"device": smi, "frames": FRAMES, "ops": profile_ops(dev, scene)}
     for what, r in result["ops"].items():

@@ -30,6 +30,7 @@ from typing import NamedTuple
 import torch
 
 from .render import _build
+from .utils.device import smi_line
 
 # SASS opcodes by kind (the opcode before the first "."); the rest is "other"
 SASS_KINDS = {
@@ -278,8 +279,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_bench: needs a CUDA device")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True).stdout.strip()
+    smi = smi_line()
     log(f"[device] {smi}")
     result = {"device": smi, "ptxas": {}}
     for name in ("render_fwd", "render_bwd"):

@@ -27,6 +27,7 @@ import ctypes
 import torch
 
 from ..render import _build
+from ..utils import launches
 from .poly import ray_poly_coeffs
 from .roots import make_newton_polisher, min_positive_root
 
@@ -89,6 +90,7 @@ def solve_roots(coefs: torch.Tensor, origin: torch.Tensor, dir: torch.Tensor,
 
 
 solve_roots.launches = 0
+launches.register("solve_roots", solve_roots, "launches")
 
 
 def solve_layout(origin: torch.Tensor, dir: torch.Tensor):

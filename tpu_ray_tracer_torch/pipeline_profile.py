@@ -33,17 +33,18 @@ reading and, as its last line, one JSON object.
 
 from __future__ import annotations
 
-import collections
 import contextlib
 import dataclasses
 import json
 import os
-import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
+
+from .utils.device import smi_line
+from .utils.timing import events_by_name
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CALLS = 5  # the calls timed, and profiled, a reading
@@ -181,23 +182,19 @@ def profile_call(call, calls: int) -> dict:
             call(k)
         torch.cuda.synchronize()
         profiled_ms = (time.perf_counter() - t0) * 1e3 / calls
-    events = prof.events()
-    device = [e for e in events if e.device_type == DeviceType.CUDA]
-    device_ms = sum(e.time_range.elapsed_us() for e in device) / 1e3 / calls
-    runtime = collections.Counter(e.name for e in events
-                                  if e.device_type == DeviceType.CPU
-                                  and e.name.startswith(("cuda", "cuLaunch", "cuGraph")))
-    runtime_ms = sum(e.time_range.elapsed_us() for e in events
-                     if e.device_type == DeviceType.CPU
-                     and e.name.startswith(("cuda", "cuLaunch", "cuGraph"))) / 1e3 / calls
+    ops = events_by_name(prof).values()
+    device_ms = sum(us for _, us in ops) / 1e3 / calls
+    runtime = {name: v for name, v in events_by_name(prof, DeviceType.CPU).items()
+               if name.startswith(("cuda", "cuLaunch", "cuGraph"))}
     return {
         "wall_ms": wall_ms,
         "profiled_wall_ms": profiled_ms,
         "device_ms": device_ms,
         "busy_share": device_ms / wall_ms,
-        "device_ops": len(device) / calls,
-        "runtime_calls": {k: v / calls for k, v in runtime.most_common(8)},
-        "runtime_ms": runtime_ms,
+        "device_ops": sum(n for n, _ in ops) / calls,
+        "runtime_calls": {k: n / calls for k, (n, _) in sorted(
+            runtime.items(), key=lambda item: -item[1][0])[:8]},
+        "runtime_ms": sum(us for _, us in runtime.values()) / 1e3 / calls,
         "peak_gib": peak_gib,
     }
 
@@ -258,18 +255,12 @@ def profile(cases: dict, modes, calls: int, print_fn=print) -> dict:
     return readings
 
 
-def _power_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True, timeout=60).stdout
-    return out.strip().splitlines()[0]
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("pipeline_profile: needs a CUDA device (torch.cuda.is_available() "
                          "is false)")
     dev = torch.device("cuda", 0)
-    smi = _power_line()
+    smi = smi_line()
     readings = profile(make_cases(dev, CALLS), ("eager", "graphed"), CALLS,
                        lambda line: print(f"[profile] {line} ({smi})", flush=True))
     print(json.dumps({"device": smi, "calls": CALLS, "readings": readings}))

@@ -37,6 +37,7 @@ import torch
 
 from ..models.surface import MONOMIAL_POWERS, N_COEFS
 from ..ops.constants import EPS, SHADOW_BIAS
+from ..utils import launches
 from . import _build
 from .fwd_kernel import MAX_AUX_LIGHTS, _eval_F_and_grad, _powers3, _prod
 
@@ -565,3 +566,5 @@ def render_bwd(coefs, colors, refl, lights, cam, grad_image, aux_t, aux_slot, au
 
 render_bwd.launches = 0
 render_bwd.launches_by_placement = dict.fromkeys(BWD_LAYOUTS, 0)
+launches.register("render_bwd", render_bwd, "launches")
+launches.register("render_bwd", render_bwd, "launches_by_placement")

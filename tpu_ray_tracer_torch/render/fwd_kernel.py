@@ -39,6 +39,7 @@ import torch
 from ..models.surface import MONOMIAL_POWERS, N_COEFS
 from ..ops.constants import EPS, MAX_T, SHADOW_BIAS, TWO_THIRD_PI
 from ..ops.poly import _EXPANSION
+from ..utils import launches
 from . import _build
 
 _FAKE_ROOT = 2e6
@@ -716,3 +717,6 @@ def render_fwd(coefs, orig_index, colors, refl, lights, dir_table, posdef, cam,
 render_fwd.launches = 0
 render_fwd.launches_by_variant = dict.fromkeys(FWD_VARIANTS, 0)
 render_fwd.launches_save_aux = 0
+launches.register("render_fwd", render_fwd, "launches")
+launches.register("render_fwd.save_aux", render_fwd, "launches_save_aux")
+launches.register("render_fwd", render_fwd, "launches_by_variant")

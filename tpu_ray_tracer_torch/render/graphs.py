@@ -36,11 +36,15 @@ pays no capture. A key whose bytes exceed the bound alone
 it runs eagerly on the current stream at every use, and ``over_bound``
 counts those calls.
 
+Every graphed call goes through one ``Graph``, and every key's per-tensor
+half is ``signature``'s.
+
 Launch accounting. The kernels' wrappers count the launches they make
-(``render_fwd.launches`` and the rest, ``launch_counts``). A capture runs
-the wrappers without executing the kernels, so ``capture`` takes their
-increments back and records them, and each ``replay`` adds what was
-recorded: the counters count the launches that execute.
+(``.launches`` and the rest) and register their counters in
+``utils/launches.py`` (``launch_counts``), so this module names no kernel.
+A capture runs the wrappers without executing the kernels, so ``capture``
+takes their increments back and records them, and each ``replay`` adds
+what was recorded: the counters count the launches that execute.
 
 While a torch profiler runs, the graphs' host work shows as spans
 (``utils.timing.span``): ``trt.graph.lookup`` (the key's graph and its
@@ -64,12 +68,8 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops.solve_kernel import solve_roots
+from ..utils import launches
 from ..utils.timing import span
-from .bwd_kernel import render_bwd
-from .fwd_kernel import render_fwd
-from .pack_kernel import pack_tables, pack_vjp
-from .select_kernel import select_rows
 
 # Graphs a cache keeps (keys seen once included); the least recently used
 # goes first. Each keeps its private memory pool on the card (chip_smoke.py
@@ -84,48 +84,8 @@ MAX_GRAPHS = 16
 MAX_GRAPH_BYTES = 8 << 30
 
 
-# (the breakdown dicts, their sizes, {name: (holder, field)}) of ``_counters``
-_TABLE = (None, None, 0, {})
-
-
-def _counters() -> dict:
-    """{name: (holder, field)} of every launch counter of the wrappers,
-    built once for each pair of breakdown dicts the wrappers hold."""
-    global _TABLE
-    variants, placements = render_fwd.launches_by_variant, render_bwd.launches_by_placement
-    size = len(variants) + len(placements)
-    if _TABLE[0] is not variants or _TABLE[1] is not placements or _TABLE[2] != size:
-        _TABLE = (variants, placements, size, {
-            "render_fwd": (render_fwd.__dict__, "launches"),
-            "render_fwd.save_aux": (render_fwd.__dict__, "launches_save_aux"),
-            "render_bwd": (render_bwd.__dict__, "launches"),
-            "pack_frame": (pack_tables.__dict__, "launches"),
-            "pack_vjp": (pack_vjp.__dict__, "launches"),
-            "select_rows": (select_rows.__dict__, "launches"),
-            "solve_roots": (solve_roots.__dict__, "launches"),
-            **{f"render_fwd.{k}": (variants, k) for k in variants},
-            **{f"render_bwd.{k}": (placements, k) for k in placements}})
-    return _TABLE[3]
-
-
-def launch_counts() -> dict:
-    """The kernels' launch counters (``.launches`` and their breakdowns) by
-    name."""
-    return {name: holder[field] for name, (holder, field) in _counters().items()}
-
-
-def _restore(counts: dict) -> None:
-    for name, (holder, field) in _counters().items():
-        holder[field] = counts[name]
-
-
-def _add(counts: dict) -> None:
-    """Add ``counts`` (a graph's launches by name) to the counters."""
-    table = _counters()
-    for name, n in counts.items():
-        if name in table:
-            holder, field = table[name]
-            holder[field] += n
+# The kernels' launch counters (``.launches`` and their breakdowns) by name
+launch_counts = launches.counts
 
 
 _STATE = threading.local()
@@ -263,15 +223,15 @@ def warmup(device, fn):
 def capture(device, fn, pool=None) -> Captured:
     """Capture ``fn()`` under ``eager()``; the launches its wrappers counted
     are taken back and kept as the graph's ``counts``."""
-    before = launch_counts()
+    before = launches.counts()
     outer, _STATE.held = getattr(_STATE, "held", None), []
     try:
         with eager():
             graph, out, nbytes = BACKEND.capture(device, fn, pool)
-        after = launch_counts()
+        after = launches.counts()
         held = _STATE.held
     finally:
-        _restore(before)
+        launches.restore(before)
         _STATE.held = outer
     return Captured(graph, out, {k: after[k] - before[k] for k in after if after[k] != before[k]},
                     held, nbytes)
@@ -281,36 +241,99 @@ def replay(captured: Captured) -> None:
     """Launch the graph and add its launches to the counters."""
     with span("trt.graph.replay"):
         BACKEND.replay(captured.graph)
-        _add(captured.counts)
+        launches.add(captured.counts)
 
 
-def pool_of(captured: Captured):
-    """The memory pool of a captured graph, for a capture that reads what
-    it left there."""
-    return BACKEND.pool(captured.graph)
+def signature(tensors, grad: bool = False) -> tuple:
+    """The per-tensor half of a graph's key: each tensor's shape, dtype and
+    device and, for a differentiable graph (``grad``), whether it requires
+    grad. The caller adds what its capture fixed on the host."""
+    return tuple((tuple(t.shape), t.dtype, t.device, grad and t.requires_grad) for t in tensors)
 
 
 class Graph:
     """A graph of ``fn(*inputs)`` whose inputs are static buffers: a call
-    copies its tensors into them, replays, and returns fresh outputs."""
+    copies its tensors into them (``load``), replays and returns fresh
+    outputs.
+
+    Captured with grad mode on and an input requiring grad, it is
+    differentiable: a second graph, ``backward`` (the outputs' gradient
+    into the inputs that require grad, for cotangents loaded into static
+    buffers), is captured into the pool of the first, ``forward``, where the
+    forward leaves what it reads, and a call goes through autograd
+    (``_GraphFunction``). The pool holds one call's saved tensors at a time
+    (``current``'s): a backward of an earlier call replays its forward
+    first."""
 
     def __init__(self, device, fn, inputs):
         self.fn = fn  # its closure may hold tensors the graph reads
-        self.inputs = [t.detach().clone() for t in inputs]
-        self.captured = capture(device, lambda: fn(*self.inputs))
-        self.nbytes = self.captured.nbytes
+        grad = torch.is_grad_enabled() and any(t.requires_grad for t in inputs)
+        self.inputs = [t.detach().clone().requires_grad_(grad and t.requires_grad)
+                       for t in inputs]
+        self.forward = capture(device, lambda: fn(*self.inputs))
+        self.backward, self.current, self.nbytes = None, None, self.forward.nbytes
+        if grad:
+            outputs = list(_tensors(self.forward.outputs))
+            self.wanted = [i for i, t in enumerate(self.inputs) if t.requires_grad]
+            self.cotangents = [torch.zeros_like(t) for t in outputs]
+            self.backward = capture(
+                device, lambda: torch.autograd.grad(
+                    outputs, [self.inputs[i] for i in self.wanted], self.cotangents,
+                    allow_unused=True),
+                pool=BACKEND.pool(self.forward.graph))
+            self.nbytes += self.backward.nbytes
 
-    def load(self, inputs) -> None:
-        """Copy the call's tensors into the static inputs."""
-        if self.inputs:
+    def load(self, tensors, into=None) -> None:
+        """Copy the call's tensors into the static inputs, or into ``into``
+        (the cotangents' buffers), in one multi-tensor copy."""
+        into = self.inputs if into is None else into
+        if into:
             with span("trt.graph.load"), torch.no_grad():
-                torch._foreach_copy_(self.inputs, list(inputs))
+                torch._foreach_copy_(into, list(tensors))
+
+    def replay(self, inputs):
+        """Load ``inputs`` and replay the forward graph; its static outputs,
+        which the next replay rewrites."""
+        self.load(inputs)
+        replay(self.forward)
+        return self.forward.outputs
 
     def __call__(self, inputs):
-        self.load(inputs)
-        replay(self.captured)
+        if self.backward is not None:
+            return _GraphFunction.apply(self, *inputs)
+        outputs = self.replay(inputs)
         with span("trt.graph.fresh"):
-            return fresh(self.captured.outputs)
+            return fresh(outputs)
+
+
+class _GraphFunction(torch.autograd.Function):
+    """A differentiable graph's call: its forward graph replayed in
+    ``forward``, its backward graph in ``backward``, fresh outputs and
+    gradients. Inputs: the ``Graph``, then the call's tensors."""
+
+    @staticmethod
+    def forward(ctx, graph, *inputs):
+        ctx.graph, ctx.token = graph, object()
+        ctx.inputs, ctx.versions = inputs, [t._version for t in inputs]
+        outputs = graph.replay(inputs)
+        graph.current = ctx.token
+        with span("trt.graph.fresh"):
+            return fresh(outputs)
+
+    @staticmethod
+    def backward(ctx, *cotangents):
+        graph = ctx.graph
+        if graph.current is not ctx.token:  # a later call's forward replaced what it saved
+            if [t._version for t in ctx.inputs] != ctx.versions:
+                raise RuntimeError("graphs: an input of a differentiable graph was modified in "
+                                   "place between the call's forward and its backward")
+            graph.replay(ctx.inputs)
+            graph.current = ctx.token
+        graph.load(cotangents, graph.cotangents)
+        replay(graph.backward)
+        with span("trt.graph.fresh"):
+            grads = dict(zip(graph.wanted, fresh(graph.backward.outputs)))
+        return (None, *(grads.get(i) for i in range(len(graph.inputs))))
 
 
 class GraphCache:
@@ -373,8 +396,8 @@ class GraphCache:
             return self.recapture(key, make)
         return self._entries[key][0]
 
-    def run(self, key, device, make, fn, *args, warm=False, current=None):
-        """One use of ``key``: ``graph(*args)`` on the key's graph
+    def run(self, key, device, make, fn, inputs, *, warm=False, current=None):
+        """One use of ``key``: ``graph(inputs)`` on the key's graph
         (``lookup``), captured anew where ``current(graph)`` is false (the
         tensors it reads moved); else ``fn()``: the key's warm-up
         (``warmup``, its bytes measured by ``CudaGraphs.grown``) at its first
@@ -389,7 +412,7 @@ class GraphCache:
                 if graph is not None and current is not None and not current(graph):
                     graph = self.recapture(key, make)
         if graph is not None:
-            return graph(*args)
+            return graph(inputs)
         if key in self._entries and self._over(key):
             self.over_bound += 1
             with span("trt.graph.eager"), eager():

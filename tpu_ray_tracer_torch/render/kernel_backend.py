@@ -373,77 +373,6 @@ def _frame_tensors(scene: Scene, camera: camera_ops.Camera) -> list:
 _FRAMES = graphs.GraphCache()
 
 
-class _GradFrame:
-    """The two graphs of a differentiable frame: the forward (the packing
-    and K1 with its aux) and the backward (K2 and the packing's VJP, or
-    the pipeline's recompute for ``PipelineGradRender``), captured one after the other into one memory
-    pool, where the forward leaves the aux that the backward reads.
-
-    The pool holds one forward's saved tensors at a time: ``current`` is
-    the forward call whose they are, and a backward of an earlier call
-    replays its forward again first."""
-
-    def __init__(self, device, body, inputs):
-        self.body = body  # its closure holds the slot tables the graphs read
-        self.inputs = [t.detach().clone().requires_grad_(t.requires_grad) for t in inputs]
-        self.wanted = [i for i, t in enumerate(self.inputs) if t.requires_grad]
-        self.fwd = graphs.capture(device, lambda: body(*self.inputs))
-        image = self.fwd.outputs
-        self.grad_image = torch.zeros_like(image)
-        self.bwd = graphs.capture(
-            device, lambda: torch.autograd.grad(image, [self.inputs[i] for i in self.wanted],
-                                                self.grad_image, allow_unused=True),
-            pool=graphs.pool_of(self.fwd))
-        self.image = image.detach()
-        self.current = None
-        self.nbytes = self.fwd.nbytes + self.bwd.nbytes
-
-    def __call__(self, inputs) -> torch.Tensor:
-        """The frame of ``inputs``, differentiable (``_GraphedRender``)."""
-        return _GraphedRender.apply(self, *inputs)
-
-    def forward(self, inputs, token) -> None:
-        with span("trt.graph.load"), torch.no_grad():
-            torch._foreach_copy_(self.inputs, list(inputs))
-        graphs.replay(self.fwd)
-        self.current = token
-
-    def backward(self, grad_image) -> list:
-        with span("trt.graph.load"):
-            self.grad_image.copy_(grad_image)
-        graphs.replay(self.bwd)
-        grads = [None] * len(self.inputs)
-        with span("trt.graph.fresh"):
-            for i, g in zip(self.wanted, self.bwd.outputs):
-                grads[i] = None if g is None else g.clone()
-        return grads
-
-
-class _GraphedRender(torch.autograd.Function):
-    """A differentiable frame as two graph replays: the forward's in
-    ``forward``, the backward's in ``backward``; the image and the
-    gradients are fresh tensors. Inputs: the ``_GradFrame``, then
-    ``_frame_tensors``' list."""
-
-    @staticmethod
-    def forward(ctx, entry, *inputs):
-        ctx.entry, ctx.token = entry, object()
-        ctx.inputs, ctx.versions = inputs, [t._version for t in inputs]
-        entry.forward(inputs, ctx.token)
-        with span("trt.graph.fresh"):
-            return entry.image.clone()
-
-    @staticmethod
-    def backward(ctx, grad_image):
-        entry = ctx.entry
-        if entry.current is not ctx.token:  # a later frame's forward replaced the aux
-            if [t._version for t in ctx.inputs] != ctx.versions:
-                raise RuntimeError("render_rows_kernel: a scene or camera tensor was modified "
-                                   "in place between the frame's forward and its backward")
-            entry.forward(ctx.inputs, ctx.token)
-        return (None, *entry.backward(grad_image))
-
-
 def _frame_key(scene: Scene, camera: camera_ops.Camera, row0: int, rows: int,
                polish_iters: int, bounces: int, shadow_iters: int, wants_grad: bool) -> tuple:
     """The key of a frame's graph: what the capture fixed on the host (the
@@ -452,8 +381,7 @@ def _frame_key(scene: Scene, camera: camera_ops.Camera, row0: int, rows: int,
     of them require grad. The camera's and the tables' values are not in it."""
     return (wants_grad, _statics_for(scene.coefs), (scene.width, scene.height),
             int(row0), int(rows), int(polish_iters), bounces, shadow_iters,
-            tuple((tuple(t.shape), t.dtype, t.device, wants_grad and t.requires_grad)
-                  for t in _frame_tensors(scene, camera)))
+            graphs.signature(_frame_tensors(scene, camera), wants_grad))
 
 
 def _render_rows_graphed(scene: Scene, camera: camera_ops.Camera, row0: int, rows: int,
@@ -473,16 +401,13 @@ def _render_rows_graphed(scene: Scene, camera: camera_ops.Camera, row0: int, row
         tables, kwargs = _pack(s, c, row0, rows, **host)
         return render_fwd(*tables, **kwargs)
 
-    return _replay_frame(key, scene.coefs.device, body, _frame_tensors(scene, camera),
-                         wants_grad)
+    return _replay_frame(key, scene.coefs.device, body, _frame_tensors(scene, camera))
 
 
-def _replay_frame(key, device, body, inputs, differentiable: bool):
-    """``body(*inputs)`` through the graphs of ``key`` in ``_FRAMES``
-    (``GraphCache.run``): the forward graph (``graphs.Graph``) or, when
-    ``differentiable``, the forward and backward graphs (``_GradFrame``)."""
-    return _FRAMES.run(key, device, lambda: (_GradFrame if differentiable else graphs.Graph)(
-        device, body, inputs), lambda: body(*inputs), inputs)
+def _replay_frame(key, device, body, inputs):
+    """``body(*inputs)`` through the ``graphs.Graph`` of ``key`` in ``_FRAMES``."""
+    return _FRAMES.run(key, device, lambda: graphs.Graph(device, body, inputs),
+                       lambda: body(*inputs), inputs)
 
 
 def _render_rows_eager(scene: Scene, camera: camera_ops.Camera, row0: int, rows: int,
@@ -543,9 +468,8 @@ def _pipeline_grad_frame(scene: Scene, camera: camera_ops.Camera, polish_iters: 
     """The differentiable frame of a scene the fused backward cannot encode
     (``PipelineGradRender``). On the card, outside ``graphs.eager()``, its
     forward (the packing and one K1 launch) and its backward (the pipeline's
-    recompute and its autograd) replay two graphs of the frame's key, the
-    backward's captured into the forward's pool (``_GradFrame``); the image
-    and the gradients are fresh tensors."""
+    recompute and its autograd) replay the two graphs of the frame's key
+    (``graphs.Graph``); the image and the gradients are fresh tensors."""
     host = _host_half(scene, polish_iters, bounces, shadow_iters)
     device = scene.coefs.device
     if not graphs.active(device):
@@ -557,7 +481,7 @@ def _pipeline_grad_frame(scene: Scene, camera: camera_ops.Camera, polish_iters: 
         return PipelineGradRender.apply(
             dataclasses.replace(scene, light_is_spherical=tensors[-1]), host, *tensors[:-1])
 
-    return _replay_frame(key, device, body, _frame_tensors(scene, camera), True)
+    return _replay_frame(key, device, body, _frame_tensors(scene, camera))
 
 
 def render_image_kernel(scene: Scene, camera: camera_ops.Camera | None = None,

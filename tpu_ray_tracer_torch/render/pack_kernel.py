@@ -37,6 +37,7 @@ import torch
 from ..models.scene import Scene
 from ..models.surface import MONOMIAL_POWERS, N_COEFS
 from ..ops import camera as camera_ops
+from ..utils import launches
 from . import _build
 from .bwd_kernel import split_grad
 from .fwd_kernel import QUAD_START
@@ -215,6 +216,7 @@ def pack_tables(scene: Scene, camera: camera_ops.Camera, slots, *, n_cubic: int,
 
 
 pack_tables.launches = 0
+launches.register("pack_frame", pack_tables, "launches")
 
 
 def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -346,3 +348,4 @@ def pack_vjp(grad_vec: torch.Tensor, gather: torch.Tensor, scene: Scene,
 
 
 pack_vjp.launches = 0
+launches.register("pack_vjp", pack_vjp, "launches")

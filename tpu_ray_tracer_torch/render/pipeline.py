@@ -269,8 +269,7 @@ def render_image(scene: Scene, camera: camera_ops.Camera | None = None,
     if (not graphs.active(device) or any(t.device != device for t in tensors)
             or (torch.is_grad_enabled() and any(t.requires_grad for t in tensors))):
         return _render_image(scene, camera, config)
-    key = (config, scene.width, scene.height,
-           tuple((tuple(t.shape), t.dtype, t.device) for t in tensors))
+    key = (config, scene.width, scene.height, graphs.signature(tensors))
 
     def body(*inputs):
         return _render_image(*_with_frame_tensors(scene, inputs), config)

@@ -29,6 +29,7 @@ import math
 import torch
 from torch.autograd.function import once_differentiable
 
+from ..utils import launches
 from . import _build
 
 # Where the kernel keeps each warp's sums: shared memory, or global scratch
@@ -60,6 +61,7 @@ def _check(what: str, values: torch.Tensor, idx: torch.Tensor) -> None:
 
 
 select_rows.launches = 0
+launches.register("select_rows", select_rows, "launches")
 
 
 class _SelectRows(torch.autograd.Function):

@@ -10,15 +10,17 @@ a once-per-second ``FPS: %.4lf, last render time: %.4f ms`` stdout line
 ``span(name)`` names a stretch of the port's host path (``trt.frame``,
 ``trt.graph.replay``, ...) on a running ``torch.profiler``'s timeline, where
 the device's kernels and copies lie too; with no profiler running it costs a
-call and one test.
+call and one test. ``events_by_name`` sums a profiler's events by name.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import time
 
 import torch
+from torch.autograd import DeviceType
 
 _NO_SPAN = contextlib.nullcontext()
 
@@ -30,6 +32,18 @@ def span(name: str):
     if torch.autograd._profiler_enabled():
         return torch.profiler.record_function(name)
     return _NO_SPAN
+
+
+def events_by_name(prof, device_type=DeviceType.CUDA) -> dict:
+    """{name: [count, us]} of the events on ``device_type`` that a finished
+    ``torch.profiler.profile`` recorded: by default the device's operations
+    (kernels, copies and fills) and their device time."""
+    by_name = collections.defaultdict(lambda: [0, 0.0])
+    for e in prof.events():
+        if e.device_type == device_type:
+            by_name[e.name][0] += 1
+            by_name[e.name][1] += e.time_range.elapsed_us()
+    return dict(by_name)
 
 
 class FrameTimer:
