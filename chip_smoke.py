@@ -55,12 +55,15 @@ result line):
 5d. the pipeline's root solve (``solve_roots``, csrc/solve_roots.cu) on the
    four calls of clebsch 800x600's soft render by row blocks (374 rows,
    then 226: branch A's primary solve [rows, 800] and both branches' shadow
-   solve [2, rows, 800, 6]; polish 2), recorded from ``Loss.render_rows``:
-   each call's root table equal to ``_solve_plain``'s on the same tensors
-   bit for bit, or each differing entry's ulps listed (fatal), one launch
-   a call; then the kernel timed alone (device-only) beside its bound
-   (``render/bounds.py`` ``solve_work`` at ``H100_F32_ISSUE_PER_S``, as
-   the source is built without FMAs) and the plain version;
+   solve [2, rows, 800, 6]; polish 2), and the same source's branch B
+   (``roots_excluding_pair``) on its two calls ([rows, 800], the problem's
+   mask), recorded from ``Loss.render_rows``: each call's root table equal
+   to its plain version's (``_solve_plain``, ``_excluding_pair_plain``) on
+   the same tensors bit for bit, or each differing entry's ulps listed
+   (fatal), one launch a call; then each kernel timed alone (device-only)
+   beside its bound (``render/bounds.py`` ``solve_work`` and
+   ``excluding_pair_work`` at ``H100_F32_ISSUE_PER_S``, as the source is
+   built without FMAs) and the plain version;
 6. timing: CUDA events over 32 frames of dingdong 1280x720 at yaws
    90 + 1e-3 k after warm-up (the kernel alone as device time of its
    launches run back to back, proven by ``timed_ms``'s gate; the whole call
@@ -129,7 +132,9 @@ result line):
    the soft loss (tau 0.15) through the pipeline by row blocks (a warm-up,
    a capture and a replay of the step's graph; no render_fwd, render_bwd or
    packing launch, and one ``select_rows`` launch a row block, 2 a step, for
-   the coefficients' gradient; the kernel route none); the loss falls on
+   the coefficients' gradient, two ``solve_roots`` and one
+   ``roots_excluding_pair`` launch a row block; the kernel route none of
+   these); the loss falls on
    both routes; each step's time and the peak device memory;
 9c. ``render_rays_soft`` at tau 1e-4 against the hard pipeline frame on
    clebsch and quadratic at full size: under 2% of pixels apart by more
@@ -232,8 +237,9 @@ line (each kernel's launches on the main paths, 9e's, 9f's, the sharded ones of
 10a and of both ranks of 10b and the bench's of 11 included, its time, its plain
 version's, its bound and share of the bound on dingdong 1280x720, and
 ``select_rows``' at clebsch's soft row blocks: its launches in 5c, 8c, 9b and
-9f; ``solve_roots``' at the same blocks, its launches in 5d and 9b; no single
-PyTorch call computes K1, K2, the packing or the solve, so their
+9f; ``solve_roots``' and ``roots_excluding_pair``'s at the same blocks, their
+launches in 5d and 9b; no single
+PyTorch call computes K1, K2, the packing or the solves, so their
 ``library_ms`` is null, and ``select_rows``' is aten's ``index_put_``), and
 {"ok": true, "device": {...}}.
 """
@@ -574,67 +580,84 @@ def select_phase(dev, smi: str) -> dict:
 
 
 def solve_phase(dev, smi: str) -> dict:
-    """Phase 5d (see the module's docstring); returns the root solve's
-    kernel at each of the four calls of clebsch's soft render by row blocks:
-    its time, its plain version's, its bound and its launches."""
+    """Phase 5d (see the module's docstring); returns, by kernel
+    (``solve_roots``, ``roots_excluding_pair``), each call's time, its plain
+    version's and its bound at clebsch's soft render by row blocks, and the
+    kernel's launches."""
     import torch
 
     import tpu_ray_tracer_torch as ttt
+    from tpu_ray_tracer_torch.diff import soft
     from tpu_ray_tracer_torch.diff.inverse import Loss, extract_params
     from tpu_ray_tracer_torch.kernel_bench import timed_ms
     from tpu_ray_tracer_torch.ops import intersect
     from tpu_ray_tracer_torch.pipeline_profile import _camera, fit_problem
     from tpu_ray_tracer_torch.render import bounds
-    from tpu_ray_tracer_torch.ops.solve_kernel import _solve_plain, solve_roots
+    from tpu_ray_tracer_torch.ops.solve_kernel import (_solve_plain, roots_excluding_pair,
+                                                       solve_roots)
 
     clebsch = ttt.load_from_file(os.path.join(REPO, "scenes", "clebsch.yml"), device=dev)
     problem, _ = fit_problem(clebsch, ["coefs", "light_color"], "torch", soft_tau=0.15)
     loss = Loss(problem)
     params = extract_params(problem.scene_template.astype(torch.float32), problem.param_fields)
-    calls = []
+    calls = {"solve_roots": [], "roots_excluding_pair": []}
 
-    def record(coefs, origin, d, polish):
-        calls.append((coefs.detach(), origin.detach(), d.detach(), polish))
-        return solve_roots(coefs, origin, d, polish)
+    def recorder(name, kernel):
+        def record(*args):
+            calls[name].append(tuple(a.detach() if isinstance(a, torch.Tensor) else a
+                                     for a in args))
+            return kernel(*args)
+        return record
 
-    intersect.solve_roots = record
+    intersect.solve_roots = recorder("solve_roots", solve_roots)
+    soft.roots_excluding_pair = recorder("roots_excluding_pair", roots_excluding_pair)
     try:
         with torch.no_grad():
             for y0 in range(0, clebsch.height, loss.block_rows):
                 loss.render_rows(params, _camera(dev), y0,
                                  min(loss.block_rows, clebsch.height - y0))
     finally:
-        intersect.solve_roots = solve_roots
-    out = {"calls": [], "launches": 0}
-    for coefs, origin, d, polish in calls:
-        label = "x".join(map(str, torch.broadcast_shapes(origin.shape, d.shape)[:-1]))
-        before = solve_roots.launches
-        got = solve_roots(coefs, origin, d, polish)
-        out["launches"] += solve_roots.launches - before
-        want = _solve_plain(coefs, origin, d, polish)
-        differ = (got != want) & ~(got.isnan() & want.isnan())
-        if bool(differ.any()):
-            ulps = (_ordered_bits(got) - _ordered_bits(want)).abs()[differ]
-            raise RuntimeError(f"solve_roots [{label}]: {int(differ.sum())} of {got.numel()} "
-                               f"entries differ from _solve_plain, up to {int(ulps.max())} ulps")
-        ms = timed_ms(lambda k: solve_roots(coefs, origin, d, polish), SOLVE_TIMED_CALLS,
-                      device_only=True)
-        plain_ms = timed_ms(lambda k: _solve_plain(coefs, origin, d, polish), SOLVE_PLAIN_CALLS)
-        work = bounds.solve_work(coefs, origin, d, polish)
-        # built without FMAs: each multiply and add is an instruction of its own
-        bound, by = bounds.bound_ms(work["ops"], work["bytes"], bounds.H100_F32_ISSUE_PER_S)
-        out["calls"].append({"shape": label, "solves": got.numel(), "ms": ms, "plain_ms": plain_ms,
-                             "bound_ms": bound, "bound_by": by, "ops": work["ops"],
-                             "bytes": work["bytes"], "share_of_bound": bound / ms})
-        log(f"[solve] solve_roots, clebsch's soft row block [{label}] x {coefs.shape[0]} "
-            f"object, polish {polish}: bit for bit _solve_plain's; kernel {ms * 1e3:.3f} us a "
-            f"call (device-only, {SOLVE_TIMED_CALLS} calls), plain version {plain_ms:.3f} ms "
-            f"(CUDA events with the host's gaps); bound {bound * 1e3:.3f} us ({by}: "
-            f"{work['ops']} operations at the f32 issue rate without FMAs, "
-            f"{work['bytes']} bytes), share {bound / ms:.3f} ({smi})")
-    if out["launches"] != len(calls) or len(calls) != 4:
-        raise RuntimeError(f"solve_roots: {len(calls)} calls in the soft render by row blocks "
-                           f"(want 4), {out['launches']} launches")
+        intersect.solve_roots, soft.roots_excluding_pair = solve_roots, roots_excluding_pair
+    # (kernel, its plain version, its count, the calls a soft render makes)
+    kernels = {"solve_roots": (solve_roots, _solve_plain,
+                               lambda c, o, d, p: bounds.solve_work(c, o, d, p), 4),
+               "roots_excluding_pair": (roots_excluding_pair, soft._excluding_pair_plain,
+                                        lambda c, o, d, p, kinds, _t:
+                                        bounds.excluding_pair_work(c, o, d, p, kinds), 2)}
+    out = {}
+    for name, (kernel, plain, work_of, n_calls) in kernels.items():
+        res = out[name] = {"calls": [], "launches": 0}
+        for args in calls[name]:
+            coefs, origin, d, polish = args[:4]
+            label = "x".join(map(str, torch.broadcast_shapes(origin.shape, d.shape)[:-1]))
+            before = kernel.launches
+            got = kernel(*args)
+            res["launches"] += kernel.launches - before
+            want = plain(*args)
+            differ = (got != want) & ~(got.isnan() & want.isnan())
+            if bool(differ.any()):
+                ulps = (_ordered_bits(got) - _ordered_bits(want)).abs()[differ]
+                raise RuntimeError(f"{name} [{label}]: {int(differ.sum())} of {got.numel()} "
+                                   f"entries differ from its plain version, up to "
+                                   f"{int(ulps.max())} ulps")
+            ms = timed_ms(lambda k: kernel(*args), SOLVE_TIMED_CALLS, device_only=True)
+            plain_ms = timed_ms(lambda k: plain(*args), SOLVE_PLAIN_CALLS)
+            work = work_of(*args)
+            # built without FMAs: each multiply and add is an instruction of its own
+            bound, by = bounds.bound_ms(work["ops"], work["bytes"], bounds.H100_F32_ISSUE_PER_S)
+            res["calls"].append({"shape": label, "solves": got.numel(), "ms": ms,
+                                 "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                                 "ops": work["ops"], "bytes": work["bytes"],
+                                 "share_of_bound": bound / ms})
+            log(f"[solve] {name}, clebsch's soft row block [{label}] x {coefs.shape[0]} "
+                f"object, polish {polish}: bit for bit its plain version's; kernel "
+                f"{ms * 1e3:.3f} us a call (device-only, {SOLVE_TIMED_CALLS} calls), plain "
+                f"version {plain_ms:.3f} ms (CUDA events with the host's gaps); bound "
+                f"{bound * 1e3:.3f} us ({by}: {work['ops']} operations at the f32 issue rate "
+                f"without FMAs, {work['bytes']} bytes), share {bound / ms:.3f} ({smi})")
+        if res["launches"] != len(calls[name]) or len(calls[name]) != n_calls:
+            raise RuntimeError(f"{name}: {len(calls[name])} calls in the soft render by row "
+                               f"blocks (want {n_calls}), {res['launches']} launches")
     return out
 
 
@@ -666,7 +689,7 @@ def main() -> int:
     from tpu_ray_tracer_torch.render.kernel_backend import pack_frame
     from tpu_ray_tracer_torch.render.pack_kernel import pack_tables, pack_vjp
     from tpu_ray_tracer_torch.render.select_kernel import select_rows
-    from tpu_ray_tracer_torch.ops.solve_kernel import solve_roots
+    from tpu_ray_tracer_torch.ops.solve_kernel import roots_excluding_pair, solve_roots
     from tpu_ray_tracer_torch.utils.device import smi_line
 
     dev = torch.device("cuda", 0)
@@ -706,7 +729,7 @@ def main() -> int:
     def zero_counts():
         render_fwd.launches = render_fwd.launches_save_aux = render_bwd.launches = 0
         pack_tables.launches = pack_vjp.launches = select_rows.launches = 0
-        solve_roots.launches = 0
+        solve_roots.launches = roots_excluding_pair.launches = 0
         for counts in (render_fwd.launches_by_variant, render_bwd.launches_by_placement):
             for key in counts:
                 counts[key] = 0
@@ -787,7 +810,8 @@ def main() -> int:
     # --- 5d. the pipeline's root solve at clebsch's soft row blocks ---
     zero_counts()
     solve = solve_phase(dev, smi)
-    solve_by_path = {"vs_plain": solve["launches"]}
+    solve_by_path = {"vs_plain": solve["solve_roots"]["launches"]}
+    excluding_by_path = {"vs_plain": solve["roots_excluding_pair"]["launches"]}
 
     # --- 6. timing (dingdong 1280x720, the JAX bench's yaw sweep) ---
     n_px = ding.width * ding.height
@@ -1366,20 +1390,24 @@ def main() -> int:
         zero_counts()
         losses, times, peak = fit_steps(problem, target, steps)
         launches = (render_fwd.launches_save_aux, render_bwd.launches, pack_tables.launches,
-                    pack_vjp.launches, select_rows.launches, solve_roots.launches)
+                    pack_vjp.launches, select_rows.launches, solve_roots.launches,
+                    roots_excluding_pair.launches)
         baseline_steps[label] = float(np.median(times))
         log(f"[fit] clebsch 800x600 coefs+light_color, {label} ({loss_fn.block_rows} rows a "
             f"block): losses {losses}, step ms {', '.join(f'{t:.4f}' for t in times)}, peak "
             f"{peak:.3f} GiB, kernel launches (fwd with aux, bwd, pack_frame, pack_vjp, "
-            f"select_rows, solve_roots) {launches} ({smi})")
+            f"select_rows, solve_roots, roots_excluding_pair) {launches} ({smi})")
         # the soft route: one select_rows launch a row block, for the coefficients' gather,
-        # and two solve_roots launches (branch A's primary solve, both branches' shadows)
+        # two solve_roots launches (branch A's primary solve, both branches' shadows) and
+        # one roots_excluding_pair launch (branch B's roots)
         row_blocks = -(-clebsch.height // loss_fn.block_rows)
-        want = ((steps,) * 4 + (0, 0) if backend == "kernel"
-                else (0,) * 4 + (row_blocks * steps, 2 * row_blocks * steps))
+        want = ((steps,) * 4 + (0, 0, 0) if backend == "kernel"
+                else (0,) * 4 + (row_blocks * steps, 2 * row_blocks * steps,
+                                 row_blocks * steps))
         if backend != "kernel":
             select_by_path["fit_soft"] = select_rows.launches
             solve_by_path["fit_soft"] = solve_roots.launches
+            excluding_by_path["fit_soft"] = roots_excluding_pair.launches
         if launches != want or not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
             raise RuntimeError(f"baseline fit {label}: launches {launches} (want {want}) or the "
                                f"loss did not fall: {losses}")
@@ -2241,7 +2269,19 @@ def main() -> int:
         "worst_ulps_vs_plain": 0,
         "library_ms": None,
         # clebsch 800x600's soft render by row blocks, its four calls
-        "calls": solve["calls"],
+        "calls": solve["solve_roots"]["calls"],
+    }, {
+        "name": "roots_excluding_pair",
+        "route": "cuda",
+        "source": "tpu_ray_tracer_torch/csrc/solve_roots.cu",
+        "replaces": "tpu_ray_tracer/diff/soft.py _roots_excluding_pair (plain JAX; not a "
+                    "Pallas kernel)",
+        "launches": sum(excluding_by_path.values()),
+        "launches_by_path": excluding_by_path,
+        "worst_ulps_vs_plain": 0,
+        "library_ms": None,
+        # branch B's two calls, one a row block
+        "calls": solve["roots_excluding_pair"]["calls"],
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -135,3 +135,43 @@ def test_components_count_each_light_once():
     # all lit -> all occluded: each pixel trades the factor, the sum's terms
     # and every shadow test for the sign and one test of slot 0
     assert hit_only - no_light > 32 * 24 * (lam + f["light_sum"] - sign)
+
+
+@pytest.mark.parametrize("name", ["clebsch", "dingdong"])
+def test_excluding_pair_work_at_32x16(name):
+    """Branch B's count (``excluding_pair_work``) at 32x16: every entry its
+    expansion, a cubic entry of a cubic class the rest of the plain
+    version's solve (four polishes of at least one step among it), the
+    other entries nothing more; polish 0 counts as 1; the bound is its
+    operations' at the f32 issue rate; the bytes are the inputs' distinct
+    elements, the mask, the normal roots taken and the table."""
+    from tpu_ray_tracer_torch.ops import camera as camera_ops
+
+    scene = dataclasses.replace(ttt.load_from_file(scene_path(name), device="cpu"),
+                                width=32, height=16).astype(torch.float32)
+    rot, eye = camera_ops.camera_frame(ttt.Camera.initial(torch.float32, "cpu"))
+    dirs = camera_ops.pixel_directions(rot, 32, 16, scene.aspect_ratio, scene.tan_half_fov)
+    args = (scene.coefs, eye.expand(dirs.shape), dirs)
+    c = bounds.excluding_pair_components(2)
+    assert c["expansion"] == bounds.solve_components(2)["expansion"]
+    assert c["cubic"] > c["expansion"] + 4 * bounds.solve_components(2)["polish"]
+    n_obj = scene.coefs.shape[0]
+    n_entries = 32 * 16 * n_obj
+    t3 = bounds.ray_poly_coeffs(*args)[0]
+    n_cubic = int((t3.abs() > bounds.EPS).sum())
+    cubic_class = tuple((scene.coefs[:, :10].abs() > 0).any(1).tolist())
+    work = bounds.excluding_pair_work(*args, 2)
+    assert 0 < n_cubic < n_entries or name == "clebsch"
+    assert work["ops"] == n_entries * c["expansion"] + n_cubic * (c["cubic"] - c["expansion"])
+    # the template's classes, or every object cubic-class: spheres have no t^3
+    for kinds in (cubic_class, (True,) * n_obj):
+        assert bounds.excluding_pair_work(*args, 2, kinds)["ops"] == work["ops"]
+    no_cubic = bounds.excluding_pair_work(*args, 2, (False,) * n_obj)
+    assert no_cubic["ops"] == n_entries * c["expansion"]
+    assert bounds.excluding_pair_work(*args, 0) == bounds.excluding_pair_work(*args, 1)
+    ms, by = bounds.bound_ms(work["ops"], work["bytes"], bounds.H100_F32_ISSUE_PER_S)
+    assert by == "operations" and ms > 0
+    quad = int(((t3.abs() <= bounds.EPS) & (bounds.ray_poly_coeffs(*args)[1].abs()
+                                             > bounds.EPS)).sum())
+    assert work["bytes"] == (4 * 20 * n_obj + 4 * 3 + 4 * 3 * 32 * 16 + n_obj
+                             + 4 * (n_entries - n_cubic - quad + n_entries))

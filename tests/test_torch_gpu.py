@@ -2,7 +2,8 @@
 forward (with and without its per-stage aux) and the backward; the plain
 pipeline, the gradient fallback and the CLI on the card; the fit's
 kernel-route step, its row-block pipeline backward and the soft render; the
-pipeline's root solve against its plain version; and the row-sharded frame
+pipeline's root solve and the soft render's branch B against their plain
+versions; and the row-sharded frame
 and step over an NCCL group of one rank, the native scene loader on the
 card, the CUDA graphs of frames, gradients and fit steps against the eager
 paths (the kernel route's and the pipeline
@@ -925,22 +926,104 @@ def test_solve_roots_refuses_what_it_does_not_take(cuda):
 
 
 def test_solve_roots_launches_in_a_soft_step(cuda):
-    """A clebsch 800x600 soft fit step solves through the kernel 4 times:
-    branch A's primary solve and the stacked shadow solve in each of its two
-    row blocks (branch B's roots are another function)."""
+    """A clebsch 800x600 soft fit step solves through ``solve_roots`` 4
+    times, branch A's primary solve and the stacked shadow solve in each of
+    its two row blocks, and through ``roots_excluding_pair`` twice, branch
+    B's roots in each block."""
     from tpu_ray_tracer_torch.diff.inverse import extract_params, make_train_step
     from tpu_ray_tracer_torch.render import graphs
-    from tpu_ray_tracer_torch.ops.solve_kernel import solve_roots
 
     problem, target = _pipeline_fit("clebsch", ("coefs", "light_color"), cuda, soft_tau=0.15,
                                     size=(800, 600))
     params = extract_params(problem.scene_template.astype(torch.float32), problem.param_fields)
     step = make_train_step(problem)
-    before = solve_roots.launches
+    before = graphs.launch_counts()
     with graphs.eager():
         loss = step(params, problem.optimizer(params), _camera(POSES[0], cuda), target, 0.15)
     assert np.isfinite(loss)
-    assert solve_roots.launches - before == 4
+    after = graphs.launch_counts()
+    assert after["solve_roots"] - before["solve_roots"] == 4
+    assert after["roots_excluding_pair"] - before["roots_excluding_pair"] == 2
+
+
+# --- the soft render's branch B: roots_excluding_pair's kernel ---
+
+# (geometry dtype, polish, coefficients' dtype): f32 at polish 1-3, f64 (its
+# polish 0 polishes once, as the plain version does), and mixed dtypes
+EXCLUDING_CASES = ([(torch.float32, polish, torch.float32) for polish in (1, 2, 3)]
+                   + [(torch.float64, 0, torch.float64), (torch.float32, 2, torch.float64),
+                      (torch.float64, 2, torch.float32)])
+
+
+def _pair_kinds(form, coefs):
+    """``pair_kinds`` in each form a caller passes: None, the problem's
+    tuple, its bool mask on the card, and every object cubic-class."""
+    cubic = tuple((coefs[:, :10].abs() > 0).any(1).tolist())
+    if form in ("none", "tuple"):
+        return None if form == "none" else cubic
+    mask = torch.tensor(cubic, dtype=torch.bool, device=coefs.device)
+    return mask if form == "mask" else torch.ones_like(mask)
+
+
+@pytest.mark.parametrize("name", SCENES)
+def test_excluding_pair_matches_plain(cuda, name):
+    """Branch B's kernel against ``_excluding_pair_plain`` on the same CUDA
+    tensors, bit for bit: the primary [R, 3] and the stacked shadow layout,
+    f32 at polish 1-3, f64, coefficients of the other dtype, each form of
+    ``pair_kinds``, ``t_normal`` given and None; one launch a call."""
+    from tpu_ray_tracer_torch.diff.soft import _excluding_pair_plain, _raw_roots_excluding_pair
+    from tpu_ray_tracer_torch.ops.solve_kernel import roots_excluding_pair, solve_roots
+
+    for dtype, polish, coef_dtype in EXCLUDING_CASES:
+        for shape, (coefs, origin, d) in _solve_inputs(name, cuda, dtype, polish).items():
+            coefs = coefs.to(coef_dtype)
+            t_normal = solve_roots(coefs, origin, d, polish)
+            for form in ("none", "tuple", "mask", "all_cubic"):
+                kinds = _pair_kinds(form, coefs)
+                for given in (t_normal, None):
+                    before = roots_excluding_pair.launches
+                    got = _raw_roots_excluding_pair(coefs, origin, d, polish, kinds, given)
+                    torch.cuda.synchronize()
+                    assert roots_excluding_pair.launches == before + 1
+                    want = _excluding_pair_plain(coefs, origin, d, polish, kinds, given)
+                    assert got.shape == want.shape and got.dtype == want.dtype
+                    assert _bit_gap(got, want) == (0, 0), (
+                        name, shape, dtype, polish, coef_dtype, form, given is None)
+
+
+@pytest.mark.parametrize("block", [0, 1])
+def test_excluding_pair_exact_at_soft_row_blocks(cuda, block, monkeypatch):
+    """At clebsch 800x600's soft row blocks, as ``Loss.render_rows`` calls
+    it (374 rows of 800 rays, then 226, one object, f32 polish 2, the
+    problem's mask): bit for bit the plain version, one launch a block."""
+    from tpu_ray_tracer_torch.diff import soft
+    from tpu_ray_tracer_torch.diff.inverse import Loss, extract_params
+
+    problem, _ = _pipeline_fit("clebsch", ("coefs", "light_color"), cuda, soft_tau=0.15,
+                               size=(800, 600))
+    loss = Loss(problem)
+    params = extract_params(problem.scene_template.astype(torch.float32), problem.param_fields)
+    calls = []
+
+    def record(*args):
+        calls.append(args)
+        return kernel(*args)
+
+    kernel = soft.roots_excluding_pair
+    monkeypatch.setattr(soft, "roots_excluding_pair", record)
+    y0 = block * loss.block_rows
+    with torch.no_grad():
+        loss.render_rows(params, _camera(POSES[0], cuda), y0,
+                         min(loss.block_rows, 600 - y0))
+    assert loss.block_rows == 374 and len(calls) == 1
+    coefs, origin, d, polish, kinds, t_normal = calls[0]
+    assert t_normal.shape == ((374, 226)[block], 800, 1) and polish == 2
+    before = kernel.launches
+    got = kernel(coefs, origin, d, polish, kinds, t_normal)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    want = soft._excluding_pair_plain(coefs, origin, d, polish, kinds, t_normal)
+    assert _bit_gap(got, want) == (0, 0)
 
 
 def test_fast_frames_unchanged_by_the_solve_kernel(cuda, monkeypatch):
@@ -1228,11 +1311,11 @@ def test_graphed_pipeline_fit_steps_equal_eager(cuda, case):
     gradient through one ``select_rows`` launch a step, in both, and each
     step solves its roots in two ``solve_roots`` launches (the primary and
     the shadow solve; the soft render's are branch A's and both branches'
-    shadows)."""
+    shadows) and, soft, branch B's in one ``roots_excluding_pair`` launch."""
     from tpu_ray_tracer_torch.diff.inverse import extract_params, make_train_step, tau_schedule
     from tpu_ray_tracer_torch.render import graphs
     from tpu_ray_tracer_torch.render.select_kernel import select_rows
-    from tpu_ray_tracer_torch.ops.solve_kernel import solve_roots
+    from tpu_ray_tracer_torch.ops.solve_kernel import roots_excluding_pair, solve_roots
 
     if case == "soft":
         fields, taus = ("coefs", "light_color"), tau_schedule(0.15, 0.05, 5)
@@ -1250,18 +1333,20 @@ def test_graphed_pipeline_fit_steps_equal_eager(cuda, case):
             losses = [step(params, optimizer, cam, target, tau) for tau in taus]
         return losses, params, step
 
-    s0, r0 = select_rows.launches, solve_roots.launches
+    s0, r0, e0 = select_rows.launches, solve_roots.launches, roots_excluding_pair.launches
     want, want_params, _ = run(True)
     # one row block a step, whose coefficient gather's backward is the kernel (soft)
     gathers = 5 if case == "soft" else 0
     assert select_rows.launches - s0 == gathers
     assert solve_roots.launches - r0 == 2 * 5
+    assert roots_excluding_pair.launches - e0 == gathers
     a0, b0, s0 = render_fwd.launches_save_aux, render_bwd.launches, select_rows.launches
-    r0 = solve_roots.launches
+    r0, e0 = solve_roots.launches, roots_excluding_pair.launches
     losses, params, step = run(False)
     assert (render_fwd.launches_save_aux - a0, render_bwd.launches - b0) == (0, 0)
     assert select_rows.launches - s0 == gathers
     assert solve_roots.launches - r0 == 2 * 5
+    assert roots_excluding_pair.launches - e0 == gathers
     assert step.graphs.captures == 1 and step.graphs.over_bound == 0
     assert losses == want
     assert all(torch.equal(params[k], want_params[k]) for k in fields)

@@ -1,10 +1,13 @@
-"""``ops/solve_kernel.solve_roots`` on the CPU: CPU tensors take the plain
-version, bit for bit, and launch nothing; the broadcast-and-stride layout the
-wrapper hands the kernel addresses the elements the plain version reads; the
-kernel's expansion and monomial tables are ``ops/poly.py``'s, row for row;
-its source alone is built without contracted multiply-adds. (The kernel
-against the plain version on the card is ``test_solve_roots_*`` in
-tests/test_torch_gpu.py.)"""
+"""``ops/solve_kernel.solve_roots`` and the soft render's branch B
+(``diff/soft._raw_roots_excluding_pair``) on the CPU: CPU tensors take the
+plain versions, bit for bit, and launch nothing; the branch B launcher
+refuses what its kernel does not take; the broadcast-and-stride layout the
+wrappers hand the kernels addresses the elements the plain version reads;
+the kernels' expansion and monomial tables are ``ops/poly.py``'s, row for
+row, and csrc/ holds one copy of them and of the solve's device functions;
+their source alone is built without contracted multiply-adds. (The kernels
+against the plain versions on the card are ``test_solve_roots_*`` and
+``test_excluding_pair_*`` in tests/test_torch_gpu.py.)"""
 
 import dataclasses
 import math
@@ -19,7 +22,9 @@ from tpu_ray_tracer_torch.models.surface import MONOMIAL_POWERS
 from tpu_ray_tracer_torch.ops import camera as camera_ops
 from tpu_ray_tracer_torch.ops.intersect import intersect_all
 from tpu_ray_tracer_torch.ops.poly import _EXPANSION
-from tpu_ray_tracer_torch.ops.solve_kernel import _solve_plain, solve_layout, solve_roots
+from tpu_ray_tracer_torch.diff.soft import _excluding_pair_plain, _raw_roots_excluding_pair
+from tpu_ray_tracer_torch.ops.solve_kernel import (_solve_plain, roots_excluding_pair,
+                                                   solve_layout, solve_roots)
 from tpu_ray_tracer_torch.render import _build, graphs
 
 SCENE_DIR = pathlib.Path(__file__).resolve().parent.parent / "scenes"
@@ -66,6 +71,87 @@ def test_cpu_tensors_take_the_plain_solve(shape, dtype, polish):
     assert torch.equal(intersect_all(coefs, origin, dirs, polish).view(torch.int8),
                        want.view(torch.int8))
     assert graphs.launch_counts()["solve_roots"] == before == solve_roots.launches
+
+
+def _kinds(form, coefs):
+    """branch B's ``pair_kinds`` in each form a caller passes: None, the
+    problem's tuple (``InverseProblem``'s, from the template), its bool mask
+    on the coefficients' device, and a mask that makes every object
+    cubic-class (its quadric entries then keep their normal root)."""
+    cubic = tuple((coefs[:, :10].abs() > 0).any(1).tolist())
+    return {"none": None, "tuple": cubic,
+            "mask": torch.tensor(cubic, dtype=torch.bool, device=coefs.device),
+            "all_cubic": torch.ones(coefs.shape[0], dtype=torch.bool, device=coefs.device),
+            }[form]
+
+
+@pytest.mark.parametrize("given", [True, False], ids=["t_normal", "no_t_normal"])
+@pytest.mark.parametrize("form", ["none", "tuple", "mask", "all_cubic"])
+@pytest.mark.parametrize("dtype,polish", [(torch.float32, 2), (torch.float64, 0)],
+                         ids=["f32_polish2", "f64_polish0"])
+def test_cpu_tensors_take_the_plain_excluding_pair(form, given, dtype, polish):
+    """On the CPU branch B's root table is ``_excluding_pair_plain``'s, bit
+    for bit, with each form of ``pair_kinds`` and with ``t_normal`` given or
+    made by ``intersect_all``; neither kernel launches."""
+    coefs, origin, dirs = _rays("dingdong", dtype)
+    kinds = _kinds(form, coefs)
+    t_normal = intersect_all(coefs, origin, dirs, polish) if given else None
+    before = graphs.launch_counts()
+    got = _raw_roots_excluding_pair(coefs, origin, dirs, polish, kinds, t_normal)
+    want = _excluding_pair_plain(coefs, origin, dirs, polish, kinds, t_normal)
+    assert got.shape == dirs.shape[:-1] + coefs.shape[:1] and got.dtype == dtype
+    assert torch.equal(got.view(torch.int8), want.view(torch.int8))
+    # the table the plain version makes itself is the one it is given
+    assert torch.equal(want, _excluding_pair_plain(coefs, origin, dirs, polish, kinds,
+                                                   intersect_all(coefs, origin, dirs, polish)))
+    assert graphs.launch_counts() == before
+    assert roots_excluding_pair.launches == before["roots_excluding_pair"]
+
+
+def _refused(case):
+    """(function, arguments, what the error names) of one input the branch B
+    launcher refuses: each check is reached on CPU tensors, the device's
+    last; meta tensors through the dispatcher reach the launcher, not the
+    plain version."""
+    coefs, origin, dirs = _rays("dingdong", torch.float32)
+    t = intersect_all(coefs, origin, dirs, 2)
+    kinds = _kinds("mask", coefs)
+    ok = (coefs, origin, dirs, 2, kinds, t)
+    meta = [x.to("meta") for x in (coefs, origin, dirs)]
+    return {
+        "half": (roots_excluding_pair, (coefs.half(), origin.half(), dirs.half(), 2, kinds,
+                                        t.half()), "f32 or f64"),
+        "mixed_rays": (roots_excluding_pair, (coefs, origin.double(), dirs, 2, kinds, t),
+                       "f32 or f64"),
+        "coefs_shape": (roots_excluding_pair, (coefs[:, :10], *ok[1:]), "coefs must be"),
+        "ray_shape": (roots_excluding_pair, (coefs, origin[..., :2], dirs[..., :2], 2, kinds,
+                                             t), "origin and dir must be"),
+        "t_normal_dtype": (roots_excluding_pair, (*ok[:5], t.double()), "t_normal"),
+        "t_normal_shape": (roots_excluding_pair, (*ok[:5], t[..., :1]), "t_normal"),
+        "t_normal_strided": (roots_excluding_pair,
+                             (*ok[:5], t.permute(2, 0, 1).contiguous().permute(1, 2, 0)),
+                             "t_normal"),
+        "kinds_dtype": (roots_excluding_pair, (*ok[:4], kinds.to(torch.uint8), t), "kinds"),
+        "kinds_shape": (roots_excluding_pair, (*ok[:4], kinds[:2], t), "kinds"),
+        "cpu": (roots_excluding_pair, ok, "one CUDA device"),
+        "meta": (_raw_roots_excluding_pair, (*meta, 2, None, t.to("meta")), "one CUDA device"),
+    }[case]
+
+
+@pytest.mark.parametrize("case", ["half", "mixed_rays", "coefs_shape", "ray_shape",
+                                  "t_normal_dtype", "t_normal_shape", "t_normal_strided",
+                                  "kinds_dtype", "kinds_shape", "cpu", "meta"])
+def test_excluding_pair_refuses_what_it_does_not_take(case):
+    """The branch B launcher raises on a half-precision table, rays of two
+    dtypes, coefficients not [N, 20], rays not [..., 3], a ``t_normal`` of
+    another dtype or shape or not contiguous, a mask not a bool [N], and
+    tensors off one CUDA device, and launches nothing; the dispatcher sends
+    tensors off the CPU to it, never to the plain version."""
+    fn, args, says = _refused(case)
+    before = roots_excluding_pair.launches
+    with pytest.raises(ValueError, match=says):
+        fn(*args)
+    assert roots_excluding_pair.launches == before
 
 
 def _layout_cases():
@@ -192,3 +278,49 @@ def test_only_the_solve_is_built_uncontracted():
     assert "-fmad=true" not in _build.nvcc_flags("solve_roots")
     for name in ("render_fwd", "render_bwd", "pack", "select_rows"):
         assert _build.nvcc_flags(name) == _build.NVCC_FLAGS
+
+
+def test_excluding_pair_kernel_is_built_uncontracted():
+    """Branch B's kernel is a second entry of ``csrc/solve_roots.cu``, so it
+    is built with the solve's -fmad=false (every multiply and add rounds on
+    its own, as each aten kernel of its plain version does)."""
+    defined_in = [p.name for p in sorted(_build._CSRC.glob("*.cu"))
+                  if re.search(r"__global__ void\b[^;{]*\broots_excluding_pair_kernel\(",
+                               p.read_text())]
+    assert defined_in == ["solve_roots.cu"]
+    assert "-fmad=false" in _build.nvcc_flags("solve_roots")
+    assert set(_build._SIGNATURES["solve_roots"]) == {"trt_solve_roots",
+                                                      "trt_roots_excluding_pair"}
+
+
+# One definition each in csrc/ of the solve's tables and device functions,
+# which both of solve_roots.cu's entries share (K1's own polish, in
+# render_fwd.cu, follows the Pallas kernel's algorithm on floats).
+SHARED_DEFINITIONS = {
+    "expansion": r"#define TRT_EXPANSION\(",
+    "monomials": r"#define TRT_MONOMIALS\(",
+    "polish": r"\bT polish\(T t,",
+    "cbrt": r"\bT cbrt_\(T x\)",
+    "depressed": r"\bDepressed<T> depressed\(",
+    "cardano": r"\bT cardano\(const Depressed<T>& d",
+    "trig_roots": r"\bvoid trig_roots\(const Depressed<T>& d",
+    "quadratic_roots": r"\bT quadratic_roots\(",
+    "expand_entry": r"\bvoid expand_entry\(",
+}
+
+
+@pytest.mark.parametrize("name", list(SHARED_DEFINITIONS))
+def test_csrc_holds_one_copy_of_the_solve(name):
+    """csrc/ defines the expansion and monomial tables, the polish, the cube
+    root, the depressed cubic, Cardano's and the trigonometric roots, the
+    quadratic's and a ray's expansion once, in solve_roots.cu, and both of
+    its kernels call the shared ones: no third copy of the solve."""
+    pattern = SHARED_DEFINITIONS[name]
+    found = {p.name: len(re.findall(pattern, p.read_text()))
+             for p in sorted(_build._CSRC.glob("*.cu*"))}
+    assert {k: v for k, v in found.items() if v} == {"solve_roots.cu": 1}
+    text = (_build._CSRC / "solve_roots.cu").read_text()
+    for kernel in ("solve_roots_kernel", "roots_excluding_pair_kernel"):
+        body = text[text.index(f"__launch_bounds__(BLOCK) {kernel}("):]
+        body = body[:body.index("\n}\n")]
+        assert "expand_entry(" in body, kernel

@@ -11,13 +11,22 @@
 // broadcast: on clebsch 800x600's soft fit step two such calls a row block
 // were 70% of the step's kernels and 84% of the bytes it wrote.
 //
-// What bounds it on this card: its operations. A thread reads its ray (6
-// values, through the broadcast strides: nothing is materialised) and
+// A second entry, `roots_excluding_pair_kernel` (`trt_roots_excluding_pair`,
+// ops/solve_kernel.py `roots_excluding_pair`), is the root table of the
+// soft render's branch B, diff/soft.py `_raw_roots_excluding_pair`: the
+// same expansion, seeds and polish (the device functions below), another
+// selection, with the pair of roots that merges at the discriminant's zero
+// left out. It too replaces no Pallas kernel (the JAX package's
+// `_roots_excluding_pair`, tpu_ray_tracer/diff/soft.py, is plain JAX); in
+// eager torch it was ~950 kernels a call, 38% of the soft fit step's.
+//
+// What bounds both on this card: their operations. A thread reads its ray
+// (6 values, through the broadcast strides: nothing is materialised) and
 // writes one value; between them the expansion (~300 operations), the
-// seeds and, with polish, six Newton-polished candidates at a few hundred
-// operations each (render/bounds.py `solve_work` counts them). Everything
-// stays in registers; the object's 20 coefficients are staged in shared
-// memory once a block.
+// seeds and, with polish, six (branch B: four) Newton-polished candidates
+// at a few hundred operations each (render/bounds.py `solve_work` and
+// `excluding_pair_work` count them). Everything stays in registers; the
+// object's 20 coefficients are staged in shared memory once a block.
 //
 // Its bits are the plain version's on the card, operation for operation:
 // - this source is built with -fmad=false (render/_build.py), so every
@@ -52,6 +61,8 @@ constexpr int BLOCK = 128;
 constexpr int MAX_DIMS = 6;  // ops/solve_kernel.py MAX_DIMS
 constexpr int N_COEFS = 20;
 constexpr double TWO_THIRD_PI = 3.14159265358979311600 * 2.0 / 3.0;  // ops/constants.py
+constexpr double EPS = 1e-7;  // ops/constants.py
+constexpr double BIG = 4e6;   // 2 * ops/roots.py _FAKE_ROOT
 
 // The origin and direction powers of t^k in each monomial m of F(o + t d):
 // TERM(k, m, first, weight, ox, oy, oz, dx, dy, dz) adds weight * o^(ox, oy,
@@ -384,14 +395,86 @@ __device__ __forceinline__ T polish(T t, const T (&c)[N_COEFS], const Ray<T>& r,
   return abs_(f) <= T(1e-5) * mag ? t : (seed < T(0) ? seed : T(2e6));
 }
 
+
+// The scale-normalized depressed cubic of a cubic entry (|t3| > EPS), as
+// ops/roots.py `min_positive_root` and diff/soft.py `_normalized_qr` make
+// it: t = s u with the scale s, the normalized a, and q, r
+template <typename T>
+struct Depressed {
+  T a, q, r, s;
+};
+
+template <typename T>
+__device__ __forceinline__ Depressed<T> depressed(T t3, T t2, T t1, T t0) {
+  T a = t2 / t3, b = t1 / t3, cc = t0 / t3;
+  const T s = maximum(maximum(abs_(a), sqrt_(abs_(b))), maximum(cbrt_(abs_(cc)), T(1e-30)));
+  a = a / s;
+  b = b / (s * s);
+  cc = cc / (s * s * s);
+  const T q = (T(3) * b - a * a) * (T(1) / T(9));
+  const T r = (T(9) * a * b - T(27) * cc - T(2) * a * a * a) * (T(1) / T(54));
+  return {a, q, r, s};
+}
+
+// the discriminant q^3 + r^2
+template <typename T>
+__device__ __forceinline__ T discriminant(const Depressed<T>& d) {
+  return d.q * d.q * d.q + d.r * d.r;
+}
+
+// Cardano's root s (cbrt(r + sqrt delta) + cbrt(r - sqrt delta) - a / 3)
+template <typename T>
+__device__ __forceinline__ T cardano(const Depressed<T>& d, T delta) {
+  const T sqrt_delta = sqrt_(clamp_min0(delta));
+  return d.s * (cbrt_(d.r + sqrt_delta) + cbrt_(d.r - sqrt_delta) - d.a * (T(1) / T(3)));
+}
+
+// the trigonometric roots s (2 sqrt(-q) cos(theta + 2 pi k / 3) - a / 3),
+// k = 0, 1, 2
+template <typename T>
+__device__ __forceinline__ void trig_roots(const Depressed<T>& d, T (&trig)[3]) {
+  const T third = T(1) / T(3);
+  const T q_neg = clamp_min0(-d.q);
+  const T denom = sqrt_(q_neg * q_neg * q_neg);
+  const T ratio = clamp(d.r / (denom == T(0) ? T(1) : denom), T(-1), T(1));
+  const T theta = acos_(ratio) * third;
+  const T two_sqrt_q = T(2) * sqrt_(q_neg);
+  const T a_third = d.a * third;
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+    trig[k] = d.s * (two_sqrt_q * cos_(theta + T(k * TWO_THIRD_PI)) - a_third);
+}
+
+// the roots (-t1 -/+ sqrt(disc)) / (2 s2) of t2 t^2 + t1 t + t0, s2 = t2
+// where |t2| > EPS, else 1; returns disc
+template <typename T>
+__device__ __forceinline__ T quadratic_roots(T t2, T t1, T t0, bool is_quad, T& lo, T& hi) {
+  const T s2 = is_quad ? t2 : T(1);
+  const T disc = t1 * t1 - T(4) * t2 * t0;
+  const T sqrt_disc = sqrt_(clamp_min0(disc));
+  lo = (-t1 - sqrt_disc) / (T(2) * s2);
+  hi = (-t1 + sqrt_disc) / (T(2) * s2);
+  return disc;
+}
+
+// the smallest candidate >= EPS, else a miss (-1); a candidate at
+// 2 * _FAKE_ROOT never wins
+template <int N, typename T>
+__device__ __forceinline__ T smallest_root(const T (&cands)[N]) {
+  T best = T(BIG);
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    if (cands[i] >= T(EPS) && cands[i] < best) best = cands[i];
+  return best >= T(BIG) ? T(-1) : best;
+}
+
 // ops/roots.py `min_positive_root` on (t3, t2, t1, t0), polished by
 // `polish` where iters > 0 (the FAST path's selection), else the
 // reference's exact branching (GOLDEN)
 template <typename T>
-__device__ __forceinline__ T select_root(T t3, T t2, T t1, T t0, const T (&c)[N_COEFS], const Ray<T>& r,
-                         int iters) {
-  const T eps = T(1e-7);  // EPS
-  const T third = T(1) / T(3);
+__device__ __forceinline__ T select_root(T t3, T t2, T t1, T t0, const T (&c)[N_COEFS],
+                                         const Ray<T>& r, int iters) {
+  const T eps = T(EPS);
   const bool is_cubic = abs_(t3) > eps, is_quad = abs_(t2) > eps, is_lin = abs_(t1) > eps;
   const bool polished = iters > 0;
   if (!is_cubic && !is_quad) return is_lin ? -(t0 / t1) : T(-1);
@@ -399,11 +482,7 @@ __device__ __forceinline__ T select_root(T t3, T t2, T t1, T t0, const T (&c)[N_
   // the quadratic branch's roots, the polished cubic's extra candidates
   T lo = T(0), hi = T(0);
   if (!is_cubic || polished) {
-    const T s2 = is_quad ? t2 : T(1);
-    const T disc = t1 * t1 - T(4) * t2 * t0;
-    const T sqrt_disc = sqrt_(clamp_min0(disc));
-    lo = (-t1 - sqrt_disc) / (T(2) * s2);
-    hi = (-t1 + sqrt_disc) / (T(2) * s2);
+    const T disc = quadratic_roots(t2, t1, t0, is_quad, lo, hi);
     if (polished) {
       lo = polish(lo, c, r, iters);
       hi = polish(hi, c, r, iters);
@@ -412,33 +491,11 @@ __device__ __forceinline__ T select_root(T t3, T t2, T t1, T t0, const T (&c)[N_
   }
 
   // the cubic's seeds, scale-normalized
-  T a = t2 / t3, b = t1 / t3, cc = t0 / t3;
-  const T s = maximum(maximum(abs_(a), sqrt_(abs_(b))), maximum(cbrt_(abs_(cc)), T(1e-30)));
-  a = a / s;
-  b = b / (s * s);
-  cc = cc / (s * s * s);
-  const T q = (T(3) * b - a * a) * (T(1) / T(9));
-  const T rr = (T(9) * a * b - T(27) * cc - T(2) * a * a * a) * (T(1) / T(54));
-  const T delta = q * q * q + rr * rr;
-
-  T cardano = T(0);
-  if (polished || delta > T(0)) {
-    const T sqrt_delta = sqrt_(clamp_min0(delta));
-    cardano = s * (cbrt_(rr + sqrt_delta) + cbrt_(rr - sqrt_delta) - a * third);
-  }
-  if (!polished && delta > T(0)) return cardano;
-
-  const T q_neg = clamp_min0(-q);
-  const T denom = sqrt_(q_neg * q_neg * q_neg);
-  const T ratio = clamp(rr / (denom == T(0) ? T(1) : denom), T(-1), T(1));
-  const T theta = acos_(ratio) * third;
-  const T two_sqrt_q = T(2) * sqrt_(q_neg);
-  const T a_third = a * third;
+  const Depressed<T> d = depressed(t3, t2, t1, t0);
+  const T delta = discriminant(d);
+  if (!polished && delta > T(0)) return cardano(d, delta);
   T trig[3];
-#pragma unroll
-  for (int k = 0; k < 3; ++k)
-    trig[k] = s * (two_sqrt_q * cos_(theta + T(k * TWO_THIRD_PI)) - a_third);
-
+  trig_roots(d, trig);
   if (!polished) {
     // the reference's asymmetric selection: start from k = 0 unchecked
     T x = trig[0];
@@ -447,14 +504,38 @@ __device__ __forceinline__ T select_root(T t3, T t2, T t1, T t0, const T (&c)[N_
     return x;
   }
   // the smallest genuine polished candidate >= EPS, else a miss
-  const T big = T(4e6);  // 2 * _FAKE_ROOT
-  T best = big;
-  const T cands[6] = {polish(cardano, c, r, iters), polish(trig[0], c, r, iters),
+  const T cands[6] = {polish(cardano(d, delta), c, r, iters), polish(trig[0], c, r, iters),
                       polish(trig[1], c, r, iters), polish(trig[2], c, r, iters), lo, hi};
+  return smallest_root(cands);
+}
+
+// diff/soft.py `_raw_roots_excluding_pair` at a cubic entry (|t3| > EPS):
+// the root as if the two roots that merge as delta -> 0- had annihilated.
+// Candidates: Cardano's root, the trigonometric root that survives the
+// merge (k = 0 where r >= 0, else k = 1) and the dominant-balance
+// quadratic's two roots, each polished (iters >= 1); a quadratic one is
+// dropped where it lies within 1e-3 s + 1e-6 of either unpolished
+// trigonometric root of the merging pair; then the smallest >= EPS
+template <typename T>
+__device__ __forceinline__ T root_excluding_pair(T t3, T t2, T t1, T t0,
+                                                 const T (&c)[N_COEFS], const Ray<T>& r,
+                                                 int iters) {
+  const Depressed<T> d = depressed(t3, t2, t1, t0);
+  T trig[3];
+  trig_roots(d, trig);
+  const bool r_pos = d.r >= T(0);
+  const T pair_a = r_pos ? trig[1] : trig[0], pair_b = trig[2];
+  T lo, hi;
+  quadratic_roots(t2, t1, t0, abs_(t2) > T(EPS), lo, hi);
+  T cands[4] = {polish(cardano(d, discriminant(d)), c, r, iters),
+                polish(r_pos ? trig[0] : trig[1], c, r, iters), polish(lo, c, r, iters),
+                polish(hi, c, r, iters)};
+  const T pair_tol = d.s * T(1e-3) + T(1e-6);
 #pragma unroll
-  for (int i = 0; i < 6; ++i)
-    if (cands[i] >= eps && cands[i] < best) best = cands[i];
-  return best >= big ? T(-1) : best;
+  for (int i = 2; i < 4; ++i)
+    if (abs_(cands[i] - pair_a) < pair_tol || abs_(cands[i] - pair_b) < pair_tol)
+      cands[i] = T(BIG);
+  return smallest_root(cands);
 }
 
 // The dtype the plain version computes in past the expansion: torch's
@@ -462,15 +543,12 @@ __device__ __forceinline__ T select_root(T t3, T t2, T t1, T t0, const T (&c)[N_
 template <typename C, typename R>
 using Wider = typename std::conditional<(sizeof(C) > sizeof(R)), C, R>::type;
 
-template <typename C, typename R>
-__global__ void __launch_bounds__(BLOCK) solve_roots_kernel(
-    const C* __restrict__ coefs, const R* __restrict__ origin, const R* __restrict__ dir,
-    Wider<C, R>* __restrict__ out, const Layout lay, long long total, int n_obj,
-    long long c_row, long long c_col, int iters) {
-  using T = Wider<C, R>;
-  // the rows of the objects this block's entries solve for: row j holds
-  // object (obj0 + j) mod N, so entry i0 + tid reads row tid mod N
-  __shared__ T rows[BLOCK * N_COEFS];
+// The coefficient rows of the objects this block's entries solve for, in
+// shared memory: row j holds object (obj0 + j) mod N, so entry i0 + tid
+// reads row tid mod N. The caller synchronizes.
+template <typename C, typename T>
+__device__ __forceinline__ void stage_rows(T* rows, const C* coefs, int n_obj, long long c_row,
+                                           long long c_col) {
   const long long i0 = (long long)blockIdx.x * BLOCK;
   const int n_rows = n_obj < BLOCK ? n_obj : BLOCK;
   const int obj0 = (int)(i0 % n_obj);
@@ -479,10 +557,17 @@ __global__ void __launch_bounds__(BLOCK) solve_roots_kernel(
     if (obj >= n_obj) obj -= n_obj;
     rows[j] = T(coefs[obj * c_row + (j % N_COEFS) * c_col]);
   }
-  __syncthreads();
-  const long long i = i0 + threadIdx.x;
-  if (i >= total) return;
-  T c[N_COEFS];
+}
+
+// Entry i's object coefficients c, its ray r in the wider dtype (the
+// polish's points o + t d are computed in it, as torch promotes them) and
+// the t^k coefficients tk[k] of F(o + t d): ops/poly.py `ray_poly_coeffs`,
+// the expansion's columns in the rays' dtype, contracted with the
+// coefficients in m order in the wider one
+template <typename R, typename T>
+__device__ __forceinline__ void expand_entry(const T* rows, const R* origin, const R* dir,
+                                             const Layout& lay, long long i, int n_obj,
+                                             T (&c)[N_COEFS], Ray<T>& r, T (&tk)[4]) {
   const T* row = rows + (threadIdx.x % n_obj) * N_COEFS;
 #pragma unroll
   for (int m = 0; m < N_COEFS; ++m) c[m] = row[m];
@@ -497,12 +582,10 @@ __global__ void __launch_bounds__(BLOCK) solve_roots_kernel(
   const Ray<R> rr{origin[o_off], origin[o_off + lay.o_comp], origin[o_off + 2 * lay.o_comp],
                   dir[d_off], dir[d_off + lay.d_comp], dir[d_off + 2 * lay.d_comp]};
 
-  // ops/poly.py `ray_poly_coeffs`: the expansion's columns in the rays'
-  // dtype, contracted with the coefficients in m order in the wider one
   R po[3][4], pd[3][4];
   powers(po, rr.ox, rr.oy, rr.oz);
   powers(pd, rr.dx, rr.dy, rr.dz);
-  T tk[4] = {T(0), T(0), T(0), T(0)};
+  tk[0] = tk[1] = tk[2] = tk[3] = T(0);
   R col = R(0);
 #define TRT_TERM(K, M, FIRST, W, OX, OY, OZ, DX, DY, DZ)                \
   {                                                                     \
@@ -514,33 +597,123 @@ __global__ void __launch_bounds__(BLOCK) solve_roots_kernel(
   TRT_EXPANSION(TRT_TERM, TRT_COLUMN)
 #undef TRT_TERM
 #undef TRT_COLUMN
-  // the polish's points o + t d in the wider dtype, as torch promotes them
-  const Ray<T> r{T(rr.ox), T(rr.oy), T(rr.oz), T(rr.dx), T(rr.dy), T(rr.dz)};
+  r = Ray<T>{T(rr.ox), T(rr.oy), T(rr.oz), T(rr.dx), T(rr.dy), T(rr.dz)};
+}
+
+// The root table of ops/solve_kernel.py `solve_roots`: intersect_all's
+// forward, entry i = ray * n_obj + object
+template <typename C, typename R>
+__global__ void __launch_bounds__(BLOCK) solve_roots_kernel(
+    const C* __restrict__ coefs, const R* __restrict__ origin, const R* __restrict__ dir,
+    Wider<C, R>* __restrict__ out, const Layout lay, long long total, int n_obj,
+    long long c_row, long long c_col, int iters) {
+  using T = Wider<C, R>;
+  __shared__ T rows[BLOCK * N_COEFS];
+  stage_rows(rows, coefs, n_obj, c_row, c_col);
+  __syncthreads();
+  const long long i = (long long)blockIdx.x * BLOCK + threadIdx.x;
+  if (i >= total) return;
+  T c[N_COEFS], tk[4];
+  Ray<T> r;
+  expand_entry(rows, origin, dir, lay, i, n_obj, c, r, tk);
   out[i] = select_root(tk[3], tk[2], tk[1], tk[0], c, r, iters);
 }
 
+// The root table of diff/soft.py `_raw_roots_excluding_pair`: a cubic
+// entry of a cubic-class object (kind 1; kind -1 classes each entry by
+// |t3| > EPS) takes `root_excluding_pair`; a quadric entry (|t2| > EPS) of
+// a quadric-class object (kind 0, or -1) no root (-1); every other entry
+// its normal root, t_normal[i] (intersect_all's table for the same rays)
 template <typename C, typename R>
-cudaError_t launch(const void* coefs, const void* origin, const void* dir, void* out,
-                   const long long* layout, int dims, long long rays, int n_obj,
-                   long long c_row, long long c_col, int iters, cudaStream_t st) {
-  if (dims < 0 || dims > MAX_DIMS || n_obj <= 0) return cudaErrorInvalidValue;
+__global__ void __launch_bounds__(BLOCK) roots_excluding_pair_kernel(
+    const C* __restrict__ coefs, const R* __restrict__ origin, const R* __restrict__ dir,
+    const unsigned char* __restrict__ kinds, long long k_stride,
+    const Wider<C, R>* __restrict__ t_normal, Wider<C, R>* __restrict__ out, const Layout lay,
+    long long total, int n_obj, long long c_row, long long c_col, int iters) {
+  using T = Wider<C, R>;
+  __shared__ T rows[BLOCK * N_COEFS];
+  stage_rows(rows, coefs, n_obj, c_row, c_col);
+  __syncthreads();
+  const long long i = (long long)blockIdx.x * BLOCK + threadIdx.x;
+  if (i >= total) return;
+  T c[N_COEFS], tk[4];
+  Ray<T> r;
+  expand_entry(rows, origin, dir, lay, i, n_obj, c, r, tk);
+  const bool is_cubic = abs_(tk[3]) > T(EPS), is_quad = abs_(tk[2]) > T(EPS);
+  const int kind = kinds == nullptr ? -1 : kinds[(i % n_obj) * k_stride] != 0;
+  if (is_cubic && kind != 0)
+    out[i] = root_excluding_pair(tk[3], tk[2], tk[1], tk[0], c, r, iters);
+  else
+    out[i] = is_quad && kind != 1 ? T(-1) : t_normal[i];
+}
+
+// What both entries launch with
+struct Launch {
+  const void *coefs, *origin, *dir;
+  void* out;
   Layout lay;
+  long long total;
+  int n_obj;
+  long long c_row, c_col;
+  int iters;
+  unsigned blocks;
+  cudaStream_t st;
+};
+
+// `a` from the entries' arguments (`layout`: ops/solve_kernel.py
+// `solve_layout`, flattened); a CUDA error where they are out of range
+cudaError_t make_launch(Launch& a, const void* coefs, const void* origin, const void* dir,
+                        void* out, const long long* layout, int dims, long long rays, int n_obj,
+                        long long c_row, long long c_col, int iters, void* stream) {
+  if (dims < 0 || dims > MAX_DIMS || n_obj <= 0) return cudaErrorInvalidValue;
   for (int k = 0; k < MAX_DIMS; ++k) {
-    lay.size[k] = layout[k];
-    lay.o_stride[k] = layout[MAX_DIMS + k];
-    lay.d_stride[k] = layout[2 * MAX_DIMS + k];
+    a.lay.size[k] = layout[k];
+    a.lay.o_stride[k] = layout[MAX_DIMS + k];
+    a.lay.d_stride[k] = layout[2 * MAX_DIMS + k];
   }
-  lay.o_comp = layout[3 * MAX_DIMS];
-  lay.d_comp = layout[3 * MAX_DIMS + 1];
-  lay.dims = dims;
-  const long long total = rays * n_obj;
-  const long long blocks = (total + BLOCK - 1) / BLOCK;
+  a.lay.o_comp = layout[3 * MAX_DIMS];
+  a.lay.d_comp = layout[3 * MAX_DIMS + 1];
+  a.lay.dims = dims;
+  a.total = rays * n_obj;
+  const long long blocks = (a.total + BLOCK - 1) / BLOCK;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  solve_roots_kernel<C, R><<<(unsigned)blocks, BLOCK, 0, st>>>(
-      static_cast<const C*>(coefs), static_cast<const R*>(origin), static_cast<const R*>(dir),
-      static_cast<Wider<C, R>*>(out), lay, total, n_obj, c_row, c_col, iters);
+  a.blocks = (unsigned)blocks;
+  a.coefs = coefs;
+  a.origin = origin;
+  a.dir = dir;
+  a.out = out;
+  a.n_obj = n_obj;
+  a.c_row = c_row;
+  a.c_col = c_col;
+  a.iters = iters;
+  a.st = static_cast<cudaStream_t>(stream);
+  return cudaSuccess;
+}
+
+template <typename C, typename R>
+cudaError_t solve(const Launch& a) {
+  solve_roots_kernel<C, R><<<a.blocks, BLOCK, 0, a.st>>>(
+      static_cast<const C*>(a.coefs), static_cast<const R*>(a.origin),
+      static_cast<const R*>(a.dir), static_cast<Wider<C, R>*>(a.out), a.lay, a.total, a.n_obj,
+      a.c_row, a.c_col, a.iters);
   return cudaGetLastError();
 }
+
+template <typename C, typename R>
+cudaError_t excluding_pair(const Launch& a, const void* kinds, long long k_stride,
+                           const void* t_normal) {
+  roots_excluding_pair_kernel<C, R><<<a.blocks, BLOCK, 0, a.st>>>(
+      static_cast<const C*>(a.coefs), static_cast<const R*>(a.origin),
+      static_cast<const R*>(a.dir), static_cast<const unsigned char*>(kinds), k_stride,
+      static_cast<const Wider<C, R>*>(t_normal), static_cast<Wider<C, R>*>(a.out), a.lay,
+      a.total, a.n_obj, a.c_row, a.c_col, a.iters);
+  return cudaGetLastError();
+}
+
+// FN<C, R>(...) for the coefficients' dtype C and the rays' R
+#define TRT_BY_DTYPE(FN, ...)                                                      \
+  (coef_f64 ? (ray_f64 ? FN<double, double>(__VA_ARGS__) : FN<double, float>(__VA_ARGS__)) \
+            : (ray_f64 ? FN<float, double>(__VA_ARGS__) : FN<float, float>(__VA_ARGS__)))
 
 }  // namespace
 
@@ -554,14 +727,27 @@ extern "C" int trt_solve_roots(const void* coefs, const void* origin, const void
                                void* out, const long long* layout, int dims, long long rays,
                                int n_obj, long long c_row, long long c_col, int iters,
                                int coef_f64, int ray_f64, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto go = [&](auto run) {
-    return (int)run(coefs, origin, dir, out, layout, dims, rays, n_obj, c_row, c_col, iters, st);
-  };
-  if (coef_f64 && ray_f64) return go(launch<double, double>);
-  if (coef_f64) return go(launch<double, float>);
-  if (ray_f64) return go(launch<float, double>);
-  return go(launch<float, float>);
+  Launch a;
+  const cudaError_t bad = make_launch(a, coefs, origin, dir, out, layout, dims, rays, n_obj,
+                                      c_row, c_col, iters, stream);
+  return (int)(bad != cudaSuccess ? bad : TRT_BY_DTYPE(solve, a));
+}
+
+// As trt_solve_roots, with kinds (one byte an object, element stride
+// k_stride; null: classed by entry) and t_normal [rays, n_obj] contiguous
+// in out's dtype; iters >= 1.
+extern "C" int trt_roots_excluding_pair(const void* coefs, const void* origin, const void* dir,
+                                        const void* kinds, long long k_stride,
+                                        const void* t_normal, void* out,
+                                        const long long* layout, int dims, long long rays,
+                                        int n_obj, long long c_row, long long c_col, int iters,
+                                        int coef_f64, int ray_f64, void* stream) {
+  Launch a;
+  const cudaError_t bad = make_launch(a, coefs, origin, dir, out, layout, dims, rays, n_obj,
+                                      c_row, c_col, iters, stream);
+  if (bad != cudaSuccess) return (int)bad;
+  if (iters < 1) return (int)cudaErrorInvalidValue;
+  return (int)TRT_BY_DTYPE(excluding_pair, a, kinds, k_stride, t_normal);
 }
 
 extern "C" const char* trt_cuda_error_string(int code) {

@@ -22,7 +22,9 @@ coefficients:
 Branch B's roots come from non-differentiable machinery (acos/cbrt seeds,
 candidate masking) computed without autograd; ``_IftRoot`` reattaches their
 gradients by the implicit function theorem, the backward of
-``ops.intersect``. Shadow booleans stay hard, as in the pipeline.
+``ops.intersect``. On the card that root table is one launch of a
+hand-written kernel (``ops/solve_kernel.roots_excluding_pair``), bit for bit
+its plain version. Shadow booleans stay hard, as in the pipeline.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from ..ops.constants import EPS, TWO_THIRD_PI
 from ..ops.intersect import _intersect_bwd, intersect_all
 from ..ops.poly import ray_poly_coeffs
 from ..ops.roots import _FAKE_ROOT, cbrt, make_newton_polisher
+from ..ops.solve_kernel import roots_excluding_pair
 from ..render.pipeline import shade_roots
 
 
@@ -119,9 +122,24 @@ def pair_coverage(coefs, origin, dir, pair_kinds=None, quad_width: float = 0.01)
 @torch.no_grad()
 def _raw_roots_excluding_pair(coefs, origin, dir, polish_iters: int, pair_kinds=None,
                               t_normal=None):
-    """The root table of ``_roots_excluding_pair``, without autograd.
+    """The root table of ``_roots_excluding_pair``, without autograd:
+    ``_excluding_pair_plain`` on CPU tensors, one launch of
+    ``solve_kernel.roots_excluding_pair`` on CUDA tensors (or a ValueError).
     ``t_normal`` is ``intersect_all``'s table for the same rays, if the
     caller has it."""
+    if all(t.device.type == "cpu" for t in (coefs, origin, dir)):
+        return _excluding_pair_plain(coefs, origin, dir, polish_iters, pair_kinds, t_normal)
+    if t_normal is None:
+        t_normal = intersect_all(coefs, origin, dir, polish_iters)
+    kinds = None if pair_kinds is None else _kinds_tensor(pair_kinds, coefs)
+    return roots_excluding_pair(coefs, origin, dir, polish_iters, kinds, t_normal)
+
+
+@torch.no_grad()
+def _excluding_pair_plain(coefs, origin, dir, polish_iters: int, pair_kinds=None,
+                          t_normal=None):
+    """``_raw_roots_excluding_pair`` in plain PyTorch, one tensor operation
+    at a time."""
     t3, t2, t1, t0 = ray_poly_coeffs(coefs, origin, dir)
     q, r, s, a, is_cubic = _normalized_qr(t3, t2, t1, t0)
     polish = make_newton_polisher(coefs, origin, dir, max(1, polish_iters))

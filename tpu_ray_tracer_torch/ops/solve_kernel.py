@@ -18,6 +18,12 @@ It reads ``origin`` and ``dir`` through their broadcast strides
 (``solve_layout``) and walks the expansion of ``ops.poly._EXPANSION`` as a
 table written out in its source (tests/test_torch_solve_roots.py generates
 the table's rows and holds the source to them).
+
+``roots_excluding_pair`` is the same source's second entry, the root table
+of the soft render's branch B on the card (``diff/soft.py``
+``_raw_roots_excluding_pair`` dispatches to it; its plain version,
+``_excluding_pair_plain``, lives there): the same expansion, seeds and
+polish, another selection.
 """
 
 from __future__ import annotations
@@ -55,42 +61,97 @@ def solve_roots(coefs: torch.Tensor, origin: torch.Tensor, dir: torch.Tensor,
     and dir both f32 or both f64, or it raises."""
     if all(t.device.type == "cpu" for t in (coefs, origin, dir)):
         return _solve_plain(coefs, origin, dir, polish_iters)
-    floats = (torch.float32, torch.float64)
-    if (coefs.dtype not in floats or origin.dtype not in floats or dir.dtype != origin.dtype
-            or coefs.device.type != "cuda"
-            or any(t.device != coefs.device for t in (origin, dir))):
-        raise ValueError(f"solve_roots: needs f32 or f64 coefs and origin and dir of one of "
-                         f"those dtypes, on one CUDA device, got "
-                         f"{[(t.dtype, str(t.device)) for t in (coefs, origin, dir)]}")
-    if coefs.dim() != 2 or coefs.shape[1] != 20:
-        raise ValueError(f"solve_roots: coefs must be [N, 20], got {tuple(coefs.shape)}")
+    _check_inputs("solve_roots", coefs, origin, dir)
+    _check_device("solve_roots", coefs, origin, dir)
     batch, dims, o_comp, d_comp = solve_layout(origin, dir)
-    n_obj, device = coefs.shape[0], coefs.device
-    out = torch.empty(batch + (n_obj,), dtype=torch.promote_types(coefs.dtype, origin.dtype),
-                      device=device)
-    if out.numel() == 0:
-        return out
-    layout = (ctypes.c_longlong * (3 * MAX_DIMS + 2))(
-        *[size for size, _, _ in dims], *[0] * (MAX_DIMS - len(dims)),
-        *[so for _, so, _ in dims], *[0] * (MAX_DIMS - len(dims)),
-        *[sd for _, _, sd in dims], *[0] * (MAX_DIMS - len(dims)), o_comp, d_comp)
-    lib = _build.load("solve_roots")
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.trt_solve_roots(coefs.data_ptr(), origin.data_ptr(), dir.data_ptr(),
-                                 out.data_ptr(), layout, len(dims), out.numel() // n_obj,
-                                 n_obj, coefs.stride(0), coefs.stride(1), int(polish_iters),
-                                 int(coefs.dtype == torch.float64),
-                                 int(origin.dtype == torch.float64), stream)
-    if rc != 0:
-        raise RuntimeError(f"solve_roots: kernel launch failed: CUDA error {rc} "
-                           f"({_build.error_string('solve_roots', rc)})")
-    solve_roots.launches += 1
+    out = torch.empty(batch + coefs.shape[:1], device=coefs.device,
+                      dtype=torch.promote_types(coefs.dtype, origin.dtype))
+    if out.numel():
+        _launch("solve_roots", coefs, origin, dir, (), out, dims, o_comp, d_comp, polish_iters)
+        solve_roots.launches += 1
     return out
 
 
 solve_roots.launches = 0
 launches.register("solve_roots", solve_roots, "launches")
+
+
+def roots_excluding_pair(coefs: torch.Tensor, origin: torch.Tensor, dir: torch.Tensor,
+                         polish_iters: int, kinds, t_normal: torch.Tensor) -> torch.Tensor:
+    """The root table [..., N] of the soft render's branch B
+    (``diff/soft.py`` ``_raw_roots_excluding_pair``, whose plain version is
+    ``_excluding_pair_plain``) as one launch of ``csrc/solve_roots.cu``'s
+    ``roots_excluding_pair_kernel`` on the current stream, counted in
+    ``roots_excluding_pair.launches``. Takes what ``solve_roots`` takes on
+    the card, and ``kinds``, None (each entry classed by |t3| > EPS) or the
+    per-object cubic-class mask, a bool [N]; ``t_normal``, ``intersect_all``'s
+    table for the same rays, [..., N] contiguous in the promoted dtype; all
+    on one CUDA device. Raises on anything else, CPU tensors included."""
+    name = "roots_excluding_pair"
+    _check_inputs(name, coefs, origin, dir)
+    batch, dims, o_comp, d_comp = solve_layout(origin, dir)
+    shape, dtype = batch + coefs.shape[:1], torch.promote_types(coefs.dtype, origin.dtype)
+    if t_normal.shape != shape or t_normal.dtype != dtype or not t_normal.is_contiguous():
+        raise ValueError(f"{name}: t_normal must be {shape} {dtype}, contiguous, got "
+                         f"{tuple(t_normal.shape)} {t_normal.dtype} with strides "
+                         f"{t_normal.stride()}")
+    if kinds is not None and (kinds.dtype != torch.bool or kinds.shape != coefs.shape[:1]):
+        raise ValueError(f"{name}: kinds must be None or a bool [{coefs.shape[0]}], got "
+                         f"{tuple(kinds.shape)} {kinds.dtype}")
+    _check_device(name, coefs, origin, dir, t_normal,
+                  *(() if kinds is None else (kinds,)))
+    out = torch.empty(shape, dtype=dtype, device=coefs.device)
+    if out.numel():
+        extra = ((None, 0) if kinds is None else (kinds.data_ptr(), kinds.stride(0))) + (
+            t_normal.data_ptr(),)
+        _launch(name, coefs, origin, dir, extra, out, dims, o_comp, d_comp,
+                max(1, int(polish_iters)))
+        roots_excluding_pair.launches += 1
+    return out
+
+
+roots_excluding_pair.launches = 0
+launches.register("roots_excluding_pair", roots_excluding_pair, "launches")
+
+
+def _check_inputs(name, coefs, origin, dir):
+    """Raise unless coefs is an f32 or f64 [N, 20] and origin and dir are
+    both f32 or both f64."""
+    floats = (torch.float32, torch.float64)
+    if coefs.dtype not in floats or origin.dtype not in floats or dir.dtype != origin.dtype:
+        raise ValueError(f"{name}: needs f32 or f64 coefs and origin and dir of one of those "
+                         f"dtypes, got {[t.dtype for t in (coefs, origin, dir)]}")
+    if coefs.dim() != 2 or coefs.shape[1] != 20:
+        raise ValueError(f"{name}: coefs must be [N, 20], got {tuple(coefs.shape)}")
+
+
+def _check_device(name, coefs, *tensors):
+    """Raise unless every tensor lies on coefs' device, a CUDA one."""
+    if coefs.device.type != "cuda" or any(t.device != coefs.device for t in tensors):
+        raise ValueError(f"{name}: needs its tensors on one CUDA device, got "
+                         f"{[str(t.device) for t in (coefs, *tensors)]}")
+
+
+def _launch(name, coefs, origin, dir, extra, out, dims, o_comp, d_comp, iters):
+    """``trt_<name>(coefs, origin, dir, *extra, out, layout, ...)`` of the
+    ``solve_roots`` library for ``solve_layout``'s dims and strides, on
+    the current stream of out's device; raises if the launch fails."""
+    n_obj = coefs.shape[0]
+    layout = (ctypes.c_longlong * (3 * MAX_DIMS + 2))(
+        *[size for size, _, _ in dims], *[0] * (MAX_DIMS - len(dims)),
+        *[so for _, so, _ in dims], *[0] * (MAX_DIMS - len(dims)),
+        *[sd for _, _, sd in dims], *[0] * (MAX_DIMS - len(dims)), o_comp, d_comp)
+    lib = _build.load("solve_roots")
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        rc = getattr(lib, f"trt_{name}")(
+            coefs.data_ptr(), origin.data_ptr(), dir.data_ptr(), *extra, out.data_ptr(), layout,
+            len(dims), out.numel() // n_obj, n_obj, coefs.stride(0), coefs.stride(1),
+            int(iters), int(coefs.dtype == torch.float64), int(origin.dtype == torch.float64),
+            stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed: CUDA error {rc} "
+                           f"({_build.error_string('solve_roots', rc)})")
 
 
 def solve_layout(origin: torch.Tensor, dir: torch.Tensor):

@@ -79,6 +79,15 @@ _SIGNATURES = {
                                                      ctypes.c_int, ctypes.c_int,
                                                      ctypes.c_void_p],
                             ctypes.c_int),
+        # coefs origin dir kinds | kinds' stride | t_normal out, layout | dims rays
+        # n_obj coef strides polish, coefs f64, rays f64 | stream
+        "trt_roots_excluding_pair": ([ctypes.c_void_p] * 4 + [ctypes.c_longlong]
+                                     + [ctypes.c_void_p] * 2
+                                     + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
+                                        ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+                                        ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                                        ctypes.c_int, ctypes.c_void_p],
+                                     ctypes.c_int),
     },
     "select_rows": {
         # rows n c f64, out[3] (placement, blocks, values of scratch) -> CUDA error

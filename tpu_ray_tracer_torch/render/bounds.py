@@ -533,3 +533,51 @@ def solve_work(coefs, origin, dir, polish_iters: int) -> dict:
 
     return {"ops": ops, "bytes": distinct(coefs) + distinct(origin) + distinct(dir)
             + t3.numel() * t3.element_size()}
+
+
+@functools.cache
+def excluding_pair_components(polish_iters: int) -> dict:
+    """f32 operations of one entry of the soft render's branch B
+    (``csrc/solve_roots.cu``'s ``roots_excluding_pair_kernel``), counted
+    once per process from the plain version (``diff/soft.py``
+    ``_excluding_pair_plain``): the expansion; and a cubic entry's whole
+    solve, the plain version on one entry with its normal root given (its
+    scale and depressed cubic, Cardano's root, the three trigonometric
+    roots, the quadratic's two, four polishes of at least one step, the
+    pair test and the selection: the plain version selects with ``where``,
+    which counts nothing)."""
+    from ..diff.soft import _excluding_pair_plain
+
+    coefs, o = torch.full((1, N_COEFS), 0.3), torch.full((1, 3), 0.3)
+    return {"expansion": count_ops(ray_poly_coeffs, coefs, o, o),
+            "cubic": count_ops(_excluding_pair_plain, coefs, o, o, polish_iters, None,
+                               torch.zeros(1, 1))}
+
+
+def excluding_pair_work(coefs, origin, dir, polish_iters: int, pair_kinds=None) -> dict:
+    """{"ops", "bytes"} of one ``roots_excluding_pair`` call on these
+    tensors (built without FMAs, as ``solve_work``'s kernel: its
+    ``bound_ms`` takes ``ops_per_s=H100_F32_ISSUE_PER_S``). Each entry
+    expands its cubic; a cubic entry (|t3| > EPS) of a cubic-class object
+    (``pair_kinds`` as the plain version takes it: None classes each entry)
+    computes the rest of the plain version's solve; every other entry only
+    selects. Bytes: the coefficients, the distinct elements of origin and
+    dir, the class mask, the normal root where an entry takes it, and the
+    table written once."""
+    c = excluding_pair_components(max(1, polish_iters))
+    t3, t2, _, _ = ray_poly_coeffs(coefs, origin, dir)
+    is_cubic, is_quad = t3.abs() > EPS, t2.abs() > EPS
+    if pair_kinds is None:
+        cubic, miss = is_cubic, ~is_cubic & is_quad
+    else:
+        kinds = torch.as_tensor(pair_kinds, dtype=torch.bool, device=t3.device)
+        cubic, miss = is_cubic & kinds, is_quad & ~kinds
+    takes_normal = int((~cubic & ~miss).sum())
+    ops = t3.numel() * c["expansion"] + int(cubic.sum()) * (c["cubic"] - c["expansion"])
+
+    def distinct(t):
+        return t.element_size() * math.prod(n for n, s in zip(t.shape, t.stride()) if s != 0)
+
+    return {"ops": ops,
+            "bytes": distinct(coefs) + distinct(origin) + distinct(dir) + coefs.shape[0]
+            + (takes_normal + t3.numel()) * t3.element_size()}
